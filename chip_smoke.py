@@ -4,21 +4,28 @@
 
 1. prints the card (nvidia-smi name and power limit) and the torch/CUDA
    versions;
-2. builds the path-DP CUDA kernel from csrc/path_dp.cu and prints the
-   build time;
-3. holds the kernel against its plain torch version on the card, for
-   exact equality, over the small parity grid, the block-overflow and
-   empty cases, and one random case at main-path shapes;
+2. builds the two path-DP CUDA kernels (csrc/path_dp_warp.cu, the warp
+   variant for cap <= 32; csrc/path_dp.cu, the block variant for larger
+   caps; one nvcc each, in parallel) and prints the build time;
+3. holds the kernels against their plain torch version on the card, for
+   exact equality, over the small parity grid, the shapes where the
+   kernels branch (cap 32 | 33, a partial block, W ending inside a
+   window tile, S = 1 and 3, block overflow), the empty case, and random
+   cases at main-path shapes; checks that each case went to the variant
+   its cap selects;
 4. drives the main path: builds (or loads from ~/.cache) a syncmer DB of
    8 genomes x 4 Mb in 2 genera, simulates 16,384 150-bp reads (1%
    errors, half reverse-complemented) and classifies them with
    Classifier(device="cuda") through classify_file at batch size 1024;
-   checks that the kernel was launched and the plain DP never ran on the
-   card, that >= 95% of reads land on their source species or genus, and
-   that the first 256 reads match the same classifier on the CPU;
-5. prints reads/s, the stage-timer table and the kernel's time per
-   launch at the main path's shapes beside the plain version's and the
-   kernel's bound.
+   prints the caps the path DP was launched at and the launches per
+   variant; checks that every launch at cap <= 32 went to the warp
+   variant, that the plain DP never ran on the card, that >= 95% of reads
+   land on their source species or genus, and that the first 256 reads
+   match the same classifier on the CPU;
+5. prints reads/s, the stage-timer table, and per launched cap the
+   kernel's time per launch beside its bound (at the first launch's cap
+   also the plain version's time and the block variant's time on the
+   same input), and launches x ms/launch beside the run's wall time.
 
 The second-to-last line is one JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}.  Any failure raises and
@@ -43,6 +50,20 @@ BATCH = 1024
 N_CPU_CHECK = 256
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate
 ALU_OPS_PER_S = 67e12            # H100 SXM 32-bit non-tensor peak
+QUEUE_CYCLES = 50_000_000        # ~25 ms of device spin while the host
+                                 # enqueues a timed run (see time_cuda)
+# parity cases where the kernels branch, as in tests/torch_dp_cases.py:
+# (name, cap, G, W, max_shift, kmer_format, dyn_gap, block_w, density)
+EDGES = [
+    ("cap32", 32, 12, 9, 3, 2, True, 8, 0.4),
+    ("cap33", 33, 12, 9, 3, 2, True, 8, 0.4),
+    ("G18-S1", 8, 18, 9, 1, 2, False, 8, 0.4),
+    ("W1-S1", 4, 12, 1, 1, 2, False, 4, 0.6),
+    ("W1-S3", 4, 12, 1, 3, 2, True, 4, 0.6),
+    ("W13-S3", 12, 18, 13, 3, 2, True, 16, 0.5),
+    ("W17-S2-kf1", 5, 18, 17, 2, 1, False, 8, 0.5),
+    ("overflow-cap12", 12, 18, 16, 1, 2, False, 2, 0.9),
+]
 ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 _COMP = np.zeros(256, dtype=np.uint8)
 for _a, _b in zip(b"ACGT", b"TGCA"):
@@ -112,8 +133,8 @@ def flipped_cuda(case, kmer_format):
 
 
 def parity(dp_cuda):
-    """Kernel vs plain version on the card; returns the max abs error
-    over all cases (must be 0) and the number of cases."""
+    """Kernels vs plain version on the card; returns the max abs error
+    per variant over all cases (must be 0) and the number of cases."""
     cases = []
     for dyn_gap, S, kf in [(False, 1, 2), (False, 3, 2), (True, 3, 2),
                            (False, 1, 1)]:
@@ -128,34 +149,66 @@ def parity(dp_cuda):
     z = np.zeros((4, 12, 6), dtype=np.int32)
     cases.append(("empty", (z.astype(bool), z, z, z, z, z), 1, 2, False, 4,
                   True, 2, 3))
-    # cap 384 puts the ring in global scratch (over 64 KB a block) and
-    # gives each thread two candidates
+    for name, cap, G, W, S, kf, dyn_gap, bw, density in EDGES:
+        rng = np.random.default_rng(len(name) + cap + G + W)
+        case = random_case(rng, cap, G, W, n_species=3, density=density,
+                           dyn_gap=dyn_gap)
+        for compact5 in (True, False):
+            cases.append((f"edge {name} compact5={compact5}", case, S, kf,
+                          dyn_gap, bw, compact5, 2, 3))
+    # cap 384 puts the block variant's ring in global scratch (over 64 KB
+    # a block) and gives each thread two candidates
     cases.append(("wide cap=384 G=24 W=10",
                   random_case(np.random.default_rng(2), 384, 24, 10,
                               n_species=3, density=0.7, dyn_gap=True),
                   3, 2, True, 16, True, 2, 3))
-    cases.append(("main-path shapes cap=16 G=6144 W=40",
-                  random_case(np.random.default_rng(1), 16, 6144, 40,
-                              density=0.6, dyn_gap=True),
-                  3, 2, True, 16, True, 2, 3))
-    max_err = 0
+    for cap in (8, 16):
+        cases.append((f"main-path shapes cap={cap} G=6144 W=40",
+                      random_case(np.random.default_rng(cap), cap, 6144, 40,
+                                  density=0.6, dyn_gap=True),
+                      3, 2, True, 16, True, 2, 3))
+    max_err = {"warp": 0, "block": 0}
+    n_checks = 0
+
+    def check(name, which, got, ref):
+        err = int((got[0].long() - ref[0].long()).abs().max()) \
+            if got[0].numel() else 0
+        same = (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+                and int(got[2]) == int(ref[2]))
+        print(f"parity {name} [{which}]: {'exact' if same else 'MISMATCH'} "
+              f"(paths={int(ref[1].sum())}, blk_over={int(ref[2])})")
+        if not same:
+            raise AssertionError(f"{which} kernel != plain version on {name}")
+        max_err[which] = max(max_err[which], err)
+
     for name, case, S, kf, dyn_gap, bw, c5, mc, mce in cases:
         ins = flipped_cuda(case, kf)
         kw = dict(min_cons=mc, min_cons_euk=mce, max_shift=S, kmer_format=kf,
                   dyn_gap=dyn_gap, block_w=bw, compact5=c5)
         ref = dp_cuda.path_dp_blocked_ref(*ins, **kw)
+        which = dp_cuda.variant(ins[0].shape[0])
+        n0 = variant_counts(dp_cuda)
         got = dp_cuda.path_dp_blocked(*ins, **kw)
         torch.cuda.synchronize()
-        err = int((got[0].long() - ref[0].long()).abs().max()) \
-            if got[0].numel() else 0
-        same = (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
-                and int(got[2]) == int(ref[2]))
-        print(f"parity {name}: {'exact' if same else 'MISMATCH'} "
-              f"(paths={int(ref[1].sum())}, blk_over={int(ref[2])})")
-        if not same:
-            raise AssertionError(f"kernel != plain version on case {name}")
-        max_err = max(max_err, err)
-    return max_err, len(cases)
+        n1 = variant_counts(dp_cuda)
+        if n1[which] != n0[which] + 1 or sum(n1.values()) != \
+                sum(n0.values()) + 1:
+            raise AssertionError(f"case {name} did not launch the {which} "
+                                 f"variant once: {n0} -> {n1}")
+        check(name, which, got, ref)
+        n_checks += 1
+        if name.startswith("main-path"):
+            # the block variant (cap > 32 on the main path) on the same
+            # main-shape input
+            got = dp_cuda._launch("block", ins, **kw)
+            torch.cuda.synchronize()
+            check(name, "block", got, ref)
+            n_checks += 1
+    return max_err, n_checks
+
+
+def variant_counts(dp_cuda):
+    return {"warp": dp_cuda.warp_launches, "block": dp_cuda.block_launches}
 
 
 # ---------------------------------------------------------------- main path
@@ -235,11 +288,17 @@ def tuples(results):
              float(q.result.score)) for q in results]
 
 
-def time_cuda(fn, reps):
+def time_cuda(fn, reps, queue_ahead=False):
+    """Device ms per call of fn over `reps` calls between two events.
+    queue_ahead keeps the device spinning while the host enqueues all the
+    calls, so a kernel shorter than its Python wrapper is timed back to
+    back rather than at the host's enqueue rate."""
     fn()
     torch.cuda.synchronize()
     t0, t1 = torch.cuda.Event(enable_timing=True), \
         torch.cuda.Event(enable_timing=True)
+    if queue_ahead:
+        torch.cuda._sleep(QUEUE_CYCLES)
     t0.record()
     for _ in range(reps):
         fn()
@@ -311,25 +370,28 @@ def main():
         clf.classify_file(warm)                      # first-use warm-up
         torch.cuda.synchronize()
 
-        captured = {}
+        calls = []          # cap of every main-path launch, in order
+        first = {}          # cap -> (args, kw) of its first launch
         launch = dp_cuda.path_dp_blocked
 
         def capture(*args, **kw):
-            if "args" not in captured:
-                captured["args"] = [a.clone() for a in args]
-                captured["kw"] = dict(kw)
+            cap = args[0].shape[0]
+            calls.append(cap)
+            if cap not in first:
+                first[cap] = ([a.clone() for a in args], dict(kw))
             return launch(*args, **kw)
 
         clf.timer.totals.clear()
         clf.timer.counts.clear()
         dp_cuda.path_dp_blocked = capture
-        dp_cuda.launches = 0
-        dp_cuda.plain_cuda_calls = 0
+        dp_cuda.launches = dp_cuda.warp_launches = 0
+        dp_cuda.block_launches = dp_cuda.plain_cuda_calls = 0
         t0 = time.perf_counter()
         results = clf.classify_file(path)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches, plain_calls = dp_cuda.launches, dp_cuda.plain_cuda_calls
+        counts = variant_counts(dp_cuda)
         dp_cuda.path_dp_blocked = launch
 
         cpu_path = os.path.join(tmp, "cpu.fna")
@@ -341,7 +403,15 @@ def main():
 
     assert len(results) == N_READS, len(results)
     assert launches > 0, "the main path never launched the path-DP kernel"
+    assert launches == len(calls), (launches, len(calls))
     assert plain_calls == 0, "the plain DP ran on the card in the main path"
+    n_small = sum(c <= dp_cuda.WARP_MAX_CAP for c in calls)
+    by_cap = {c: calls.count(c) for c in sorted(first)}
+    print(f"main path: path DP launched at caps {by_cap} (launches per cap); "
+          f"warp variant {counts['warp']}, block variant {counts['block']}")
+    assert counts["warp"] == n_small, \
+        "a main-path launch at cap <= 32 did not go to the warp variant"
+    assert counts["block"] == launches - n_small
     cls = np.array([q.result.classification for q in results])
     species = 4 + src
     genus = 2 + src % 2
@@ -360,29 +430,63 @@ def main():
     print(f"stage timer (host seconds) on {card}:")
     print(clf.timer.report())
 
-    args, kw = captured["args"], captured["kw"]
-    k_ms = time_cuda(lambda: launch(*args, **kw), 20)
+    # each launched cap's first input, timed back to back on the device
+    timed = {}
+    for cap, (args, kw) in first.items():
+        ms = time_cuda(lambda: launch(*args, **kw), 50, queue_ahead=True)
+        b_ms, b_by = kernel_bound_ms(args, kw)
+        timed[cap] = (ms, b_ms, b_by)
+        _, G, W = args[0].shape
+        print(f"path_dp {dp_cuda.variant(cap)} kernel at cap={cap} (G={G}, "
+              f"W={W}, S={kw['max_shift']}, block_w={kw['block_w']}): "
+              f"{ms:.4f} ms/launch, bound {b_ms:.5f} ms ({b_by}), "
+              f"{ms / b_ms:.1f}x bound, on {card}")
+    k_total = sum(timed[c][0] for c in calls)
+    print(f"path DP share of the run: {launches} launches x ms/launch = "
+          f"{k_total:.3f} ms of {dt * 1e3:.1f} ms wall "
+          f"({100 * k_total / (dt * 1e3):.2f}%)")
+    # the first launch's input: plain version and the block variant
+    args, kw = first[calls[0]]
     p_ms = time_cuda(lambda: dp_cuda.path_dp_blocked_ref(*args, **kw), 3)
-    b_ms, b_by = kernel_bound_ms(args, kw)
-    cap, G, W = args[0].shape
-    print(f"path_dp kernel at main-path shapes (cap={cap}, G={G}, W={W}, "
-          f"S={kw['max_shift']}): {k_ms:.4f} ms/launch, plain version "
-          f"{p_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by}) on {card}")
+    blk_ms = time_cuda(lambda: dp_cuda._launch("block", args, **kw), 50,
+                       queue_ahead=True)
+    print(f"at the first launch's input (cap={calls[0]}): plain version "
+          f"{p_ms:.3f} ms, block variant {blk_ms:.4f} ms/launch, "
+          f"{dp_cuda.variant(calls[0])} variant {timed[calls[0]][0]:.4f} "
+          f"ms/launch on {card}")
+
+    kernels = []
+    for which, src_file, name in (
+            ("warp", "path_dp_warp.cu", "path_dp"),
+            ("block", "path_dp.cu", "path_dp_block")):
+        caps = [c for c in calls if dp_cuda.variant(c) == which]
+        if not caps:
+            print(f"{which} variant (csrc/{src_file}): not launched on the "
+                  f"main path (no launch at its caps); parity max_abs_err "
+                  f"{max_err[which]}")
+            continue
+        cap = caps[0]                     # its first main-path launch
+        args, kw = first[cap]
+        ms, b_ms, b_by = timed[cap]
+        kernels.append({
+            "name": name,
+            "variant": which,
+            "cap": cap,
+            "route": "cuda",
+            "source": f"metabuli_work_tpu_torch/csrc/{src_file}",
+            "replaces": "metabuli_work_tpu/ops/dp_pallas.py:88",
+            "launches": counts[which],
+            "max_abs_err": max_err[which],
+            "ms": ms,
+            "plain_ms": p_ms if cap == calls[0] else time_cuda(
+                lambda: dp_cuda.path_dp_blocked_ref(*args, **kw), 3),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+        })
 
     print(f"card: {card}")
-    print(json.dumps({"kernels": [{
-        "name": "path_dp",
-        "route": "cuda",
-        "source": "metabuli_work_tpu_torch/csrc/path_dp.cu",
-        "replaces": "metabuli_work_tpu/ops/dp_pallas.py:88",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": b_ms,
-        "bound_by": b_by,
-        "library_ms": None,
-    }]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,6 @@
-// Fused candidate rank + consecutive-match path DP + blocked emission.
+// Fused candidate rank + consecutive-match path DP + blocked emission,
+// block-per-lane variant (used for cap > 32; path_dp_warp.cu takes
+// cap <= 32).
 //
 // Replaces the TPU kernel metabuli_work_tpu/ops/dp_pallas.py::_dp_kernel
 // (launched by path_dp_blocked).  It computes, for every read x frame
@@ -24,10 +26,9 @@
 // of cap*W per lane) and the outputs are block_w*5 words per lane, so
 // the bytes are small; the work is the cap x cap predecessor compare per
 // ring slot and window (integer ALU work) plus the barriers of the
-// sequential window loop.  The design keeps all state on chip and reads
-// each input word once; the barrier-bound window loop is what a later,
-// faster version would attack (several lanes per block, warp-level
-// votes instead of block barriers).
+// sequential window loop.  At cap > 32 a lane's candidates no longer
+// fit one warp, so the block barriers stay; the main path's caps
+// (<= 32) go to the warp variant, which has none.
 //
 // f32: every score is a sum of multiples of 0.5 far below 2^24, so each
 // add is exact; the adds still run one at a time in the reference order.
@@ -35,17 +36,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "path_dp_common.cuh"
+
 namespace {
 
-constexpr int kBigKey = 0x7FFFFFFF;
+using path_dp::codon_score;
+using path_dp::kBigKey;
 
 // ring field indices (int32 fields; the score is a separate float array)
 enum { F_SP, F_DNA, F_DEPTH, F_HAM, F_START, F_RHS, F_RHE, F_CONN, F_POS,
        F_MD, F_KEY, NF };
-
-__device__ __forceinline__ float codon_score(int h) {
-  return h == 0 ? 3.0f : 2.0f - 0.5f * (float)h;
-}
 
 struct Params {
   const int* sp;     // [cap, G, W] species (euk flag bit 30), -1 = none
@@ -61,7 +61,7 @@ struct Params {
       compact5, ring_in_smem;
 };
 
-__global__ void path_dp_kernel(Params p) {
+__global__ void path_dp_block_kernel(Params p) {
   extern __shared__ int smem[];
   const int g = blockIdx.x;
   const int cap = p.cap, S = p.S, G = p.G, W = p.W;
@@ -238,30 +238,12 @@ __global__ void path_dp_kernel(Params p) {
         }
         const int slot = base_cnt + rank;
         if (slot >= p.block_w) continue;
-        const unsigned start = (unsigned)R(rr, F_START, i);
-        const unsigned end = (unsigned)(R(rr, F_POS, i) + 23);
-        const unsigned hamv = (unsigned)R(rr, F_HAM, i);
-        const unsigned rhs = (unsigned)R(rr, F_RHS, i);
-        const unsigned rhe = (unsigned)R(rr, F_RHE, i);
-        const int e_sp = R(rr, F_SP, i) & 0x3FFFFFFF;
-        const int score_bits = __float_as_int(rscore[rr * cap + i]);
-        const long long stride = (long long)p.block_w * G;
-        int* out = p.cols + (long long)slot * G + g;
-        if (p.compact5) {
-          out[0] = (int)(((unsigned)g << 16) | (start & 0xFFFFu));
-          out[stride] = (int)(((end & 0xFFFFu) << 16) | rhs);
-          out[2 * stride] = (int)((rhe << 16) | (hamv & 0xFFFFu));
-          out[3 * stride] = e_sp;
-          out[4 * stride] = score_bits;
-        } else {
-          out[0] = g;
-          out[stride] = e_sp;
-          out[2 * stride] = (int)start;
-          out[3 * stride] = (int)end;
-          out[4 * stride] = score_bits;
-          out[5 * stride] = (int)((hamv << 16) | rhs);
-          out[6 * stride] = (int)rhe;
-        }
+        path_dp::write_path(
+            p.cols, slot, g, G, p.block_w, p.compact5,
+            (unsigned)R(rr, F_START, i), (unsigned)(R(rr, F_POS, i) + 23),
+            (unsigned)R(rr, F_HAM, i), (unsigned)R(rr, F_RHS, i),
+            (unsigned)R(rr, F_RHE, i), R(rr, F_SP, i) & 0x3FFFFFFF,
+            __float_as_int(rscore[rr * cap + i]));
       }
       __syncthreads();
       if (tid == 0) {
@@ -285,14 +267,9 @@ __global__ void path_dp_kernel(Params p) {
 
   // empty slots hold 0; valid marks the filled ones
   const int cnt = s_cnt;
-  const int n_cols = p.compact5 ? 5 : 7;
-  for (int slot = tid; slot < p.block_w; slot += nt) {
-    const long long o = (long long)slot * G + g;
-    p.valid[o] = slot < cnt;
-    if (slot >= cnt)
-      for (int c = 0; c < n_cols; ++c)
-        p.cols[(long long)c * p.block_w * G + o] = 0;
-  }
+  for (int slot = tid; slot < p.block_w; slot += nt)
+    path_dp::finish_slot(p.cols, p.valid, slot, g, G, p.block_w, p.compact5,
+                         cnt);
   if (tid == 0 && cnt > p.block_w) atomicAdd(p.blk_over, cnt - p.block_w);
 }
 
@@ -302,31 +279,32 @@ extern "C" {
 
 // Shared-memory bytes the kernel needs per block with the ring on chip
 // (0 means the ring goes to global scratch).
-long long path_dp_smem_bytes(int cap, int S) {
+long long path_dp_block_smem_bytes(int cap, int S) {
   return (long long)(S + 1) * (NF + 1) * cap * 4;
 }
 
 // Launches the kernel on `stream`; returns cudaGetLastError().  scratch
-// holds G * path_dp_smem_bytes / 4 ints when ring_in_smem is 0, else
+// holds G * path_dp_block_smem_bytes / 4 ints when ring_in_smem is 0, else
 // may be null.
-int path_dp_launch(const int* sp, const int* dna, const int* rh,
-                   const int* ham, const int* pos, int* cols,
-                   unsigned char* valid, int* blk_over, int* scratch,
-                   int cap, int G, int W, int S, int block_w,
-                   int kmer_format, int dyn_gap, int min_cons,
-                   int min_cons_euk, int compact5, int ring_in_smem,
-                   int threads, void* stream) {
+int path_dp_block_launch(const int* sp, const int* dna, const int* rh,
+                         const int* ham, const int* pos, int* cols,
+                         unsigned char* valid, int* blk_over, int* scratch,
+                         int cap, int G, int W, int S, int block_w,
+                         int kmer_format, int dyn_gap, int min_cons,
+                         int min_cons_euk, int compact5, int ring_in_smem,
+                         int threads, void* stream) {
   Params p{sp, dna, rh, ham, pos, cols, valid, blk_over, scratch,
            cap, G, W, S, block_w, kmer_format, dyn_gap, min_cons,
            min_cons_euk, compact5, ring_in_smem};
-  const long long smem = ring_in_smem ? path_dp_smem_bytes(cap, S) : 0;
+  const long long smem =
+      ring_in_smem ? path_dp_block_smem_bytes(cap, S) : 0;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        path_dp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        path_dp_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  path_dp_kernel<<<G, threads, (size_t)smem, (cudaStream_t)stream>>>(p);
+  path_dp_block_kernel<<<G, threads, (size_t)smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

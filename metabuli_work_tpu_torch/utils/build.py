@@ -18,14 +18,15 @@ BUILD_DIR = os.path.join(REPO_ROOT, "build", "torch_kernels")
 NATIVE_DIR = os.path.join(REPO_ROOT, "native")
 
 
-def build_library(sources, lib_name, cmd_prefix):
-    """Compile `sources` into BUILD_DIR/lib_name unless an up-to-date copy
-    exists; returns the library path.  cmd_prefix is the compiler and its
-    flags; "-o <tmp>" and the sources are appended.  Raises RuntimeError
-    with the compiler's output on failure."""
+def build_library(sources, lib_name, cmd_prefix, deps=()):
+    """Compile `sources` into BUILD_DIR/lib_name unless a copy newer than
+    the sources and `deps` (headers they include) exists; returns the
+    library path.  cmd_prefix is the compiler and its flags; "-o <tmp>"
+    and the sources are appended.  Raises RuntimeError with the
+    compiler's output on failure."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, lib_name)
-    newest = max(os.path.getmtime(s) for s in sources)
+    newest = max(os.path.getmtime(s) for s in [*sources, *deps])
     if os.path.exists(out) and os.path.getmtime(out) >= newest:
         return out
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=".tmp_", suffix=".so")
