@@ -1,6 +1,6 @@
 """Smoke run of metabuli_work_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 1. prints the card (nvidia-smi name and power limit) and the torch/CUDA
    versions;
@@ -10,22 +10,48 @@
 3. holds the kernels against their plain torch version on the card, for
    exact equality, over the small parity grid, the shapes where the
    kernels branch (cap 32 | 33, a partial block, W ending inside a
-   window tile, S = 1 and 3, block overflow), the empty case, and random
-   cases at main-path shapes; checks that each case went to the variant
-   its cap selects;
-4. drives the main path: builds (or loads from ~/.cache) a syncmer DB of
-   8 genomes x 4 Mb in 2 genera, simulates 16,384 150-bp reads (1%
-   errors, half reverse-complemented) and classifies them with
-   Classifier(device="cuda") through classify_file at batch size 1024;
-   prints the caps the path DP was launched at and the launches per
-   variant; checks that every launch at cap <= 32 went to the warp
-   variant, that the plain DP never ran on the card, that >= 95% of reads
-   land on their source species or genus, and that the first 256 reads
-   match the same classifier on the CPU;
-5. prints reads/s, the stage-timer table, and per launched cap the
-   kernel's time per launch beside its bound (at the first launch's cap
-   also the plain version's time and the block variant's time on the
-   same input), and launches x ms/launch beside the run's wall time.
+   window tile, S = 1 and 3, block overflow), the empty case, random
+   cases at main-path shapes, and the long rows and mate pairs that
+   --seq-mode 3 and 2 give them (W in the thousands, both path layouts,
+   two launches over the same lanes with different W); checks that each
+   case went to the variant its cap selects;
+4. builds (or loads from ~/.cache) a syncmer DB of 8 genomes x 4 Mb in 2
+   genera and drives four paths on it through Classifier(device="cuda")
+   and classify_file, each after a one-batch warm-up, each with the
+   kernels' launch counts set to 0 just before and read just after:
+   - single-end: 16,384 reads of 150 bp (1% errors, half reverse-
+     complemented), batch 1024;
+   - paired-end (--seq-mode 2): 8,192 pairs of 2 x 150 bp, insert
+     280-420, mate 2 reverse-complemented, batch 1024; the path DP must
+     launch twice per dispatched batch (once per mate);
+   - long reads (--seq-mode 3, min_score 0.008, min_sp_score 0): 256
+     reads of 10 kb at batch 32, a 24-kb and a 36-kb read (their batches
+     run the 7-column path layout) and a 150-kb read (beyond the 64-kb
+     row cap: redone from chunks through the host-match step);
+   - host-match flow (min_cons_cnt 1): 4,096 of the single-end reads; no
+     path-DP kernel belongs to this flow and none may launch.
+   For every path it checks that the plain DP never ran on the card,
+   that every launch at cap <= 32 went to the warp variant, that >= 95%
+   of reads land on their source species or genus, and that a subset
+   matches the same classifier on the CPU (the long-read CPU run starts
+   from the default knobs and climbs the overflow-retry ladder on its
+   own; the card run must have retried at least once); it prints
+   reads/s, the stage-timer table and the peak device memory;
+5. for every path and every launch shape the path gave the kernel,
+   holds the kernel against the plain version on the path's own
+   captured input for exact equality ("parity main-path" lines), and
+   prints the kernel's time per launch beside its bound and the plain
+   version's time (at the single-end path's first launch also the block
+   variant's time on the same input), and launches x ms/launch beside
+   the single-end run's wall time.
+
+With --profile every path is driven once more under torch.profiler (CPU
++ CUDA activities) after its checks: the sum of all device kernel and
+copy times ("busy"; the path runs on one stream, so the sum is the busy
+time), the idle share 1 - busy / profiled wall, busy over the unprofiled
+wall, and the ten kernels with the most device time.  The profiler slows
+the host, so the idle share is an upper bound of the unprofiled run's.
+The long-read path is profiled on its 10-kb reads alone.
 
 The second-to-last line is one JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}.  Any failure raises and
@@ -48,6 +74,12 @@ N_READS = 16384
 READ_LEN = 150
 BATCH = 1024
 N_CPU_CHECK = 256
+N_PAIRS = 8192
+INSERT = (280, 420)
+N_LONG, LONG_LEN, LONG_BATCH = 256, 10_000, 32
+MID_LONG = (24_000, 36_000)      # rows >= 2^14 nt: the 7-column layout
+VERY_LONG = 150_000              # beyond the 64-kb row cap: chunked
+N_HOST_MATCH = 4096
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate
 ALU_OPS_PER_S = 67e12            # H100 SXM 32-bit non-tensor peak
 QUEUE_CYCLES = 50_000_000        # ~25 ms of device spin while the host
@@ -63,6 +95,16 @@ EDGES = [
     ("W13-S3", 12, 18, 13, 3, 2, True, 16, 0.5),
     ("W17-S2-kf1", 5, 18, 17, 2, 1, False, 8, 0.5),
     ("overflow-cap12", 12, 18, 16, 1, 2, False, 2, 0.9),
+]
+# long rows and mate pairs, as in tests/torch_dp_cases.py: the EDGES
+# fields plus the compact5 settings to run
+LONG_W = [
+    ("W3333-S3-overflow", 8, 24, 3333, 3, 2, True, 16, 0.3, (True, False)),
+    ("W2400-S3-bw512", 8, 24, 2400, 3, 2, True, 512, 0.3, (False,)),
+    ("W5461-S1", 4, 12, 5461, 1, 2, False, 64, 0.4, (True, False)),
+    ("W2001-cap40-block", 40, 12, 2001, 3, 2, True, 32, 0.1, (False,)),
+    ("mate1-W36", 8, 1536, 36, 3, 2, True, 16, 0.5, (True,)),
+    ("mate2-W33", 8, 1536, 33, 3, 2, True, 16, 0.5, (True,)),
 ]
 ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 _COMP = np.zeros(256, dtype=np.uint8)
@@ -132,6 +174,22 @@ def flipped_cuda(case, kmer_format):
             for a in (sp_m, fl(dna), fl(rh), fl(ham), fl(pos))]
 
 
+def check(max_err, name, which, got, ref):
+    """One kernel result against the plain version's: paths, valid flags
+    and overflow count equal, or it raises.  Returns the max abs error
+    and folds it into max_err[which]."""
+    err = int((got[0].long() - ref[0].long()).abs().max()) \
+        if got[0].numel() else 0
+    same = (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+            and int(got[2]) == int(ref[2]))
+    print(f"parity {name} [{which}]: {'exact' if same else 'MISMATCH'} "
+          f"(paths={int(ref[1].sum())}, blk_over={int(ref[2])})")
+    if not same:
+        raise AssertionError(f"{which} kernel != plain version on {name}")
+    max_err[which] = max(max_err[which], err)
+    return err
+
+
 def parity(dp_cuda):
     """Kernels vs plain version on the card; returns the max abs error
     per variant over all cases (must be 0) and the number of cases."""
@@ -149,11 +207,12 @@ def parity(dp_cuda):
     z = np.zeros((4, 12, 6), dtype=np.int32)
     cases.append(("empty", (z.astype(bool), z, z, z, z, z), 1, 2, False, 4,
                   True, 2, 3))
-    for name, cap, G, W, S, kf, dyn_gap, bw, density in EDGES:
+    for name, cap, G, W, S, kf, dyn_gap, bw, density, c5s in \
+            [e + ((True, False),) for e in EDGES] + LONG_W:
         rng = np.random.default_rng(len(name) + cap + G + W)
         case = random_case(rng, cap, G, W, n_species=3, density=density,
                            dyn_gap=dyn_gap)
-        for compact5 in (True, False):
+        for compact5 in c5s:
             cases.append((f"edge {name} compact5={compact5}", case, S, kf,
                           dyn_gap, bw, compact5, 2, 3))
     # cap 384 puts the block variant's ring in global scratch (over 64 KB
@@ -170,17 +229,6 @@ def parity(dp_cuda):
     max_err = {"warp": 0, "block": 0}
     n_checks = 0
 
-    def check(name, which, got, ref):
-        err = int((got[0].long() - ref[0].long()).abs().max()) \
-            if got[0].numel() else 0
-        same = (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
-                and int(got[2]) == int(ref[2]))
-        print(f"parity {name} [{which}]: {'exact' if same else 'MISMATCH'} "
-              f"(paths={int(ref[1].sum())}, blk_over={int(ref[2])})")
-        if not same:
-            raise AssertionError(f"{which} kernel != plain version on {name}")
-        max_err[which] = max(max_err[which], err)
-
     for name, case, S, kf, dyn_gap, bw, c5, mc, mce in cases:
         ins = flipped_cuda(case, kf)
         kw = dict(min_cons=mc, min_cons_euk=mce, max_shift=S, kmer_format=kf,
@@ -195,14 +243,14 @@ def parity(dp_cuda):
                 sum(n0.values()) + 1:
             raise AssertionError(f"case {name} did not launch the {which} "
                                  f"variant once: {n0} -> {n1}")
-        check(name, which, got, ref)
+        check(max_err, name, which, got, ref)
         n_checks += 1
         if name.startswith("main-path"):
             # the block variant (cap > 32 on the main path) on the same
             # main-shape input
             got = dp_cuda._launch("block", ins, **kw)
             torch.cuda.synchronize()
-            check(name, "block", got, ref)
+            check(max_err, name, "block", got, ref)
             n_checks += 1
     return max_err, n_checks
 
@@ -265,16 +313,38 @@ def build_or_load_db():
     return index, genomes, False
 
 
-def simulate_reads(genomes, rng):
-    G = np.stack([np.frombuffer(g.encode(), dtype=np.uint8) for g in genomes])
-    gi = rng.integers(0, len(genomes), size=N_READS)
-    starts = rng.integers(0, G.shape[1] - READ_LEN, size=N_READS)
-    reads = G[gi[:, None], starts[:, None] + np.arange(READ_LEN)[None, :]]
-    err = rng.random((N_READS, READ_LEN)) < 0.01
+def genome_matrix(genomes):
+    return np.stack([np.frombuffer(g.encode(), dtype=np.uint8)
+                     for g in genomes])
+
+
+def simulate_reads(G, rng, n, read_len):
+    """n reads of read_len bases, 1% errors, half reverse-complemented;
+    returns (reads [n, read_len] uint8, source genome [n])."""
+    gi = rng.integers(0, G.shape[0], size=n)
+    starts = rng.integers(0, G.shape[1] - read_len, size=n)
+    reads = G[gi[:, None], starts[:, None] + np.arange(read_len)[None, :]]
+    err = rng.random((n, read_len)) < 0.01
     reads[err] = ACGT[rng.integers(0, 4, size=int(err.sum()))]
-    rc = rng.random(N_READS) < 0.5
+    rc = rng.random(n) < 0.5
     reads[rc] = _COMP[reads[rc, ::-1]]
     return np.ascontiguousarray(reads), gi
+
+
+def simulate_pairs(G, rng, n, read_len):
+    """Paired fragments (insert INSERT): mate 1 = the fragment's first
+    read_len bases, mate 2 = the reverse complement of its last read_len
+    (the reference's paired orientation), 1% errors."""
+    gi = rng.integers(0, G.shape[0], size=n)
+    ins = rng.integers(INSERT[0], INSERT[1] + 1, size=n)
+    starts = rng.integers(0, G.shape[1] - INSERT[1], size=n)
+    frag = G[gi[:, None], starts[:, None] + np.arange(INSERT[1])[None, :]]
+    err = rng.random(frag.shape) < 0.01
+    frag[err] = ACGT[rng.integers(0, 4, size=int(err.sum()))]
+    r1 = np.ascontiguousarray(frag[:, :read_len])
+    idx = ins[:, None] - 1 - np.arange(read_len)[None, :]
+    r2 = np.ascontiguousarray(_COMP[frag[np.arange(n)[:, None], idx]])
+    return r1, r2, gi
 
 
 def write_fasta(path, reads):
@@ -288,12 +358,13 @@ def tuples(results):
              float(q.result.score)) for q in results]
 
 
-def time_cuda(fn, reps, queue_ahead=False):
+def time_cuda(fn, reps, queue_ahead=False, warm=True):
     """Device ms per call of fn over `reps` calls between two events.
     queue_ahead keeps the device spinning while the host enqueues all the
     calls, so a kernel shorter than its Python wrapper is timed back to
     back rather than at the host's enqueue rate."""
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     t0, t1 = torch.cuda.Event(enable_timing=True), \
         torch.cuda.Event(enable_timing=True)
@@ -326,7 +397,167 @@ def kernel_bound_ms(args, kw):
                                    else "operations")
 
 
-def main():
+KEEP_INPUTS = 6     # launches per path whose inputs are kept for timing
+
+
+def drive(dp_cuda, clf, run):
+    """One main-path run: stage timer and peak-memory mark reset, every
+    kernel count set to 0 just before `run()` and read just after.
+    Every path_dp_blocked call is noted as (cap, W, compact5); the inputs
+    of the first KEEP_INPUTS distinct ones are kept (device copies, so
+    they count into the run's peak memory) for the timings."""
+    calls, first = [], {}
+    launch = dp_cuda.path_dp_blocked
+
+    def capture(*args, **kw):
+        key = (args[0].shape[0], args[0].shape[2], kw["compact5"])
+        calls.append(key)
+        if key not in first and len(first) < KEEP_INPUTS:
+            first[key] = ([a.clone() for a in args], dict(kw))
+        return launch(*args, **kw)
+
+    clf.timer.totals.clear()
+    clf.timer.counts.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dp_cuda.path_dp_blocked = capture
+    dp_cuda.launches = dp_cuda.warp_launches = 0
+    dp_cuda.block_launches = dp_cuda.plain_cuda_calls = 0
+    t0 = time.perf_counter()
+    try:
+        results = run()
+        torch.cuda.synchronize()
+    finally:
+        dp_cuda.path_dp_blocked = launch
+    dt = time.perf_counter() - t0
+    return {"results": results, "dt": dt, "calls": calls, "first": first,
+            "launches": dp_cuda.launches, "plain": dp_cuda.plain_cuda_calls,
+            "counts": variant_counts(dp_cuda),
+            "dispatches": clf.timer.counts["dispatch"],
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def check_path(name, r, n_reads, src, dp_cuda, card, unit="reads"):
+    """The checks every path shares: result count, launches counted where
+    the kernel launched and nowhere else, the plain DP never on the card,
+    variant by cap, >= 95% of reads at source species or genus."""
+    results, calls, counts = r["results"], r["calls"], r["counts"]
+    assert len(results) == n_reads, (name, len(results))
+    assert r["launches"] == len(calls), (name, r["launches"], len(calls))
+    assert r["plain"] == 0, f"{name}: the plain DP ran on the card"
+    n_small = sum(c[0] <= dp_cuda.WARP_MAX_CAP for c in calls)
+    by_cap = {}
+    for cap, W, c5 in calls:
+        k = f"cap {cap} W {W} {'5' if c5 else '7'}col"
+        by_cap[k] = by_cap.get(k, 0) + 1
+    print(f"{name}: path DP launches by shape {by_cap}; warp variant "
+          f"{counts['warp']}, block variant {counts['block']}; "
+          f"{r['dispatches']} dispatches")
+    assert counts["warp"] == n_small, \
+        f"{name}: a launch at cap <= 32 did not go to the warp variant"
+    assert counts["block"] == r["launches"] - n_small
+    cls = np.array([q.result.classification for q in results])
+    species, genus = 4 + src, 2 + src % 2
+    right = float(np.mean((cls == species) | (cls == genus)))
+    print(f"{name}: {n_reads} {unit}, {r['launches']} kernel launches, "
+          f"{right * 100:.2f}% at source species or genus, "
+          f"{float(np.mean(cls == species)) * 100:.2f}% at species")
+    assert right >= 0.95, f"{name}: only {right:.4f} classified correctly"
+    print(f"{name}: {n_reads / r['dt']:.1f} {unit}/s ({r['dt']:.3f} s for "
+          f"{n_reads} {unit}); peak device memory "
+          f"{r['peak'] / 2**30:.3f} GiB; on {card}")
+
+
+def cpu_check(name, gpu_results, cpu_results):
+    gpu_res, cpu_res = tuples(gpu_results), tuples(cpu_results)
+    n_same = sum(a == b for a, b in zip(gpu_res, cpu_res))
+    print(f"{name} CPU check: {n_same}/{len(cpu_res)} reads identical to "
+          f"the CPU run")
+    assert gpu_res == cpu_res, f"{name}: GPU and CPU classifications differ"
+
+
+def stage_table(name, clf, card):
+    print(f"{name} stage timer (host seconds) on {card}:")
+    print(clf.timer.report())
+
+
+def time_shapes(name, r, dp_cuda, card, max_err, reps=50, plain_reps=3):
+    """Each kept launch input of a path: the kernel held against the
+    plain version on it (exact, or it raises), then timed back to back
+    on the device; returns {(cap, W, compact5): (ms, bound_ms, bound_by,
+    plain_ms, max_abs_err)}.  plain_reps=1 times the plain version's only call."""
+    timed = {}
+    for key, (args, kw) in r["first"].items():
+        cap, G, W = args[0].shape
+        which = dp_cuda.variant(cap)
+        shape = (f"cap={cap} G={G} W={W} S={kw['max_shift']} "
+                 f"block_w={kw['block_w']} "
+                 f"{'5' if kw['compact5'] else '7'} columns")
+        ref = []
+
+        def plain():
+            ref[:] = [dp_cuda.path_dp_blocked_ref(*args, **kw)]
+
+        plain_ms = time_cuda(plain, plain_reps, warm=plain_reps > 1)
+        got = dp_cuda.path_dp_blocked(*args, **kw)
+        torch.cuda.synchronize()
+        err = check(max_err, f"main-path {name} {shape}", which, got,
+                    ref[0])
+        del ref[:], got
+        ms = time_cuda(lambda: dp_cuda.path_dp_blocked(*args, **kw), reps,
+                       queue_ahead=True)
+        b_ms, b_by = kernel_bound_ms(args, kw)
+        timed[key] = (ms, b_ms, b_by, plain_ms, err)
+        print(f"{name}: path_dp {which} kernel at {shape}: "
+              f"{ms:.4f} ms/launch, bound {b_ms:.5f} ms ({b_by}), "
+              f"{ms / b_ms:.1f}x bound, plain version {plain_ms:.3f} ms, "
+              f"on {card}")
+    return timed
+
+
+def profile_path(name, run, n_reads, card):
+    """`run()` unprofiled, then under torch.profiler: the two walls, the
+    device busy time (sum of kernel and copy times), the idle share and
+    the ten kernels with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    dt = timed()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_p = timed()
+
+    def device_us(e):
+        # renamed from *cuda* to *device* across torch versions
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # device rows only: an operator's row repeats its kernels' time
+    rows = sorted(((device_us(e), e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and device_us(e) > 0),
+                  reverse=True)
+    if not rows:
+        raise RuntimeError("torch.profiler recorded no device time")
+    busy = sum(r[0] for r in rows) / 1e6
+    print(f"{name} profile: {n_reads} reads on {card}: unprofiled wall "
+          f"{dt:.3f} s; under the profiler wall {wall_p:.3f} s, device busy "
+          f"{busy:.3f} s in {sum(r[1] for r in rows)} kernels and copies, "
+          f"idle share {100 * (1 - busy / wall_p):.1f}%; busy / unprofiled "
+          f"wall {100 * busy / dt:.1f}%")
+    for us, count, key in rows[:10]:
+        print(f"  {us / 1e3:9.3f} ms  {count:6d} x  {key[:90]}")
+
+
+def main(argv=()):
+    profiled = "--profile" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
@@ -344,146 +575,260 @@ def main():
     dp_cuda.build()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
 
+    t0 = time.perf_counter()
     max_err, n_cases = parity(dp_cuda)
-    print(f"parity: {n_cases} cases exact, max_abs_err {max_err}")
+    print(f"parity: {n_cases} cases exact, max_abs_err {max_err} "
+          f"({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
     index, genomes, hit = build_or_load_db()
     print(f"DB: {index.size} metamers, {N_GENOMES} genomes x {GENOME_LEN} bp "
           f"({'cache hit' if hit else 'built'}, "
           f"{time.perf_counter() - t0:.1f} s)")
-    reads, src = simulate_reads(genomes, np.random.default_rng(1))
-    params = ClassifyParams(seq_mode=1, min_score=0.15, min_sp_score=0.5,
-                            batch_size=BATCH)
-    t0 = time.perf_counter()
-    clf = Classifier.from_memory(index, params, device="cuda")
-    print(f"classifier setup (pack + upload): "
-          f"{time.perf_counter() - t0:.1f} s, hash chain {clf.hash_chain}, "
-          f"cap {clf.cap}, device memory "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    G = genome_matrix(genomes)
+    short = dict(min_score=0.15, min_sp_score=0.5)
+    long_kw = dict(seq_mode=3, min_score=0.008, min_sp_score=0.0)
 
+    def classifier(device="cuda", **kw):
+        return Classifier.from_memory(index, ClassifyParams(**kw),
+                                      device=device)
+
+    runs = {}
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "reads.fna")
-        write_fasta(path, reads)
-        warm = os.path.join(tmp, "warm.fna")
-        write_fasta(warm, reads[:BATCH])
-        clf.classify_file(warm)                      # first-use warm-up
-        torch.cuda.synchronize()
+        fa = lambda name: os.path.join(tmp, name)
 
-        calls = []          # cap of every main-path launch, in order
-        first = {}          # cap -> (args, kw) of its first launch
-        launch = dp_cuda.path_dp_blocked
-
-        def capture(*args, **kw):
-            cap = args[0].shape[0]
-            calls.append(cap)
-            if cap not in first:
-                first[cap] = ([a.clone() for a in args], dict(kw))
-            return launch(*args, **kw)
-
-        clf.timer.totals.clear()
-        clf.timer.counts.clear()
-        dp_cuda.path_dp_blocked = capture
-        dp_cuda.launches = dp_cuda.warp_launches = 0
-        dp_cuda.block_launches = dp_cuda.plain_cuda_calls = 0
+        # ------------------------------------------------ single-end
+        reads, src = simulate_reads(G, np.random.default_rng(1), N_READS,
+                                    READ_LEN)
         t0 = time.perf_counter()
-        results = clf.classify_file(path)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launches, plain_calls = dp_cuda.launches, dp_cuda.plain_cuda_calls
-        counts = variant_counts(dp_cuda)
-        dp_cuda.path_dp_blocked = launch
+        clf = classifier(seq_mode=1, batch_size=BATCH, **short)
+        print(f"classifier setup (pack + upload): "
+              f"{time.perf_counter() - t0:.1f} s, hash chain "
+              f"{clf.hash_chain}, cap {clf.cap}, device memory "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        write_fasta(fa("reads.fna"), reads)
+        write_fasta(fa("warm.fna"), reads[:BATCH])
+        write_fasta(fa("cpu.fna"), reads[:N_CPU_CHECK])
+        clf.classify_file(fa("warm.fna"))            # first-use warm-up
+        r = runs["single-end"] = drive(
+            dp_cuda, clf, lambda: clf.classify_file(fa("reads.fna")))
+        assert r["launches"] > 0, \
+            "the single-end path never launched the path-DP kernel"
+        assert clf._match_state is None, \
+            "the path-DP flow uploaded the host-match arrays"
+        check_path("single-end", r, N_READS, src, dp_cuda, card)
+        stage_table("single-end", clf, card)
+        cpu = classifier("cpu", seq_mode=1, batch_size=N_CPU_CHECK, **short)
+        cpu_check("single-end", r["results"][:N_CPU_CHECK],
+                  cpu.classify_file(fa("cpu.fna")))
+        if profiled:
+            profile_path("single-end",
+                         lambda: clf.classify_file(fa("reads.fna")),
+                         N_READS, card)
+        clf = None
+        torch.cuda.empty_cache()
 
-        cpu_path = os.path.join(tmp, "cpu.fna")
-        write_fasta(cpu_path, reads[:N_CPU_CHECK])
-        cpu = Classifier.from_memory(index, ClassifyParams(
-            seq_mode=1, min_score=0.15, min_sp_score=0.5,
-            batch_size=N_CPU_CHECK), device="cpu")
-        cpu_res = tuples(cpu.classify_file(cpu_path))
+        # ------------------------------------------------ paired-end
+        m1, m2, src2 = simulate_pairs(G, np.random.default_rng(2), N_PAIRS,
+                                      READ_LEN)
+        for tag, m in (("1", m1), ("2", m2)):
+            write_fasta(fa(f"pairs_{tag}.fna"), m)
+            write_fasta(fa(f"warm_{tag}.fna"), m[:BATCH])
+            write_fasta(fa(f"cpu_{tag}.fna"), m[:N_CPU_CHECK])
+        clf = classifier(seq_mode=2, batch_size=BATCH, **short)
+        clf.classify_file(fa("warm_1.fna"), fa("warm_2.fna"))
+        r = runs["paired"] = drive(
+            dp_cuda, clf,
+            lambda: clf.classify_file(fa("pairs_1.fna"), fa("pairs_2.fna")))
+        assert r["launches"] == 2 * r["dispatches"] > 0, \
+            f"paired: {r['launches']} launches for {r['dispatches']} " \
+            f"dispatched batches (two per batch expected, one per mate)"
+        assert all(q.length2 == READ_LEN for q in r["results"])
+        check_path("paired", r, N_PAIRS, src2, dp_cuda, card, unit="pairs")
+        stage_table("paired", clf, card)
+        cpu = classifier("cpu", seq_mode=2, batch_size=N_CPU_CHECK, **short)
+        cpu_check("paired", r["results"][:N_CPU_CHECK],
+                  cpu.classify_file(fa("cpu_1.fna"), fa("cpu_2.fna")))
+        if profiled:
+            profile_path("paired", lambda: clf.classify_file(
+                fa("pairs_1.fna"), fa("pairs_2.fna")), N_PAIRS, card)
+        clf = None
+        torch.cuda.empty_cache()
 
-    assert len(results) == N_READS, len(results)
-    assert launches > 0, "the main path never launched the path-DP kernel"
-    assert launches == len(calls), (launches, len(calls))
-    assert plain_calls == 0, "the plain DP ran on the card in the main path"
-    n_small = sum(c <= dp_cuda.WARP_MAX_CAP for c in calls)
-    by_cap = {c: calls.count(c) for c in sorted(first)}
-    print(f"main path: path DP launched at caps {by_cap} (launches per cap); "
-          f"warp variant {counts['warp']}, block variant {counts['block']}")
-    assert counts["warp"] == n_small, \
-        "a main-path launch at cap <= 32 did not go to the warp variant"
-    assert counts["block"] == launches - n_small
-    cls = np.array([q.result.classification for q in results])
-    species = 4 + src
-    genus = 2 + src % 2
-    right = float(np.mean((cls == species) | (cls == genus)))
-    print(f"main path: {N_READS} reads, {launches} kernel launches, "
-          f"{right * 100:.2f}% at source species or genus, "
-          f"{float(np.mean(cls == species)) * 100:.2f}% at species")
-    assert right >= 0.95, f"only {right:.4f} of reads classified correctly"
-    gpu_res = tuples(results[:N_CPU_CHECK])
-    n_same = sum(a == b for a, b in zip(gpu_res, cpu_res))
-    print(f"CPU check: {n_same}/{N_CPU_CHECK} reads identical to the CPU run")
-    assert gpu_res == cpu_res, "GPU and CPU classifications differ"
+        # ------------------------------------------------ long reads
+        rng = np.random.default_rng(3)
+        lr, src3 = simulate_reads(G, rng, N_LONG, LONG_LEN)
+        long_reads = list(lr)
+        src3 = list(src3)
+        # a 24-kb read inside the first timed batch, a 36-kb and the
+        # 150-kb read at the end
+        extra = {}
+        for at, n in ((5, MID_LONG[0]), (None, MID_LONG[1]),
+                      (None, VERY_LONG)):
+            one, g = simulate_reads(G, rng, 1, n)
+            at = len(long_reads) if at is None else at
+            long_reads.insert(at, one[0])
+            src3.insert(at, int(g[0]))
+            extra[n] = at
+        src3 = np.array(src3)
+        n_long = len(long_reads)
+        n_bases = sum(len(x) for x in long_reads)
+        write_fasta(fa("long.fna"), long_reads)
+        write_fasta(fa("long_warm.fna"), lr[:LONG_BATCH])
+        clf = classifier(batch_size=LONG_BATCH, **long_kw)
+        clf.classify_file(fa("long_warm.fna"))
+        warm_retries = clf.timer.counts["retry"]
+        r = runs["long-read"] = drive(
+            dp_cuda, clf, lambda: clf.classify_file(fa("long.fna")))
+        retries = clf.timer.counts["retry"]
+        n7 = sum(not c5 for _, _, c5 in r["calls"])
+        assert n7 > 0, "long-read: no launch with the 7-column layout"
+        assert any(c5 for _, _, c5 in r["calls"])
+        assert clf._match_state is not None, \
+            "long-read: the read beyond the row cap never reached the " \
+            "host-match step"
+        assert r["results"][extra[VERY_LONG]].length1 == VERY_LONG
+        check_path("long-read", r, n_long, src3, dp_cuda, card)
+        print(f"long-read: {n_bases / r['dt']:.1f} bases/s ({n_bases} bases, "
+              f"batch {LONG_BATCH}); {n7} launches with 7 columns; emission "
+              f"block settled at {clf._path_block}, cap at {clf.cap}; the "
+              f"{VERY_LONG}-base read classified as "
+              f"{r['results'][extra[VERY_LONG]].result.classification} "
+              f"(source species {4 + src3[extra[VERY_LONG]]}); on {card}")
+        t_chunk = clf.timer.totals["long_probe"] \
+            + clf.timer.totals["long_score"]
+        t_batch = r["dt"] - t_chunk
+        print(f"long-read: the batch pass ({n_long - 1} reads up to "
+              f"{MID_LONG[1]} bases) took {t_batch:.3f} s: "
+              f"{(n_long - 1) / t_batch:.1f} reads/s, "
+              f"{(n_bases - VERY_LONG) / t_batch:.1f} bases/s; the "
+              f"{VERY_LONG}-base read's chunk pass took {t_chunk:.3f} s "
+              f"(device probe {clf.timer.totals['long_probe']:.3f} s, host "
+              f"scoring {clf.timer.totals['long_score']:.3f} s); on {card}")
+        stage_table("long-read", clf, card)
+        # The card climbed the overflow-retry ladder (a 10-kb lane ends
+        # far more paths than the default emission block holds; the 24-kb
+        # read in the first timed batch overflows once more).  CPU: two
+        # 10-kb reads, the 24-kb read (7 columns) and the 150-kb read
+        # (chunked), from the default knobs, so the CPU run climbs the
+        # ladder on its own and the card's end state is held against it.
+        print(f"long-read: {warm_retries} overflow retries in the warm-up "
+              f"batch, {retries} in the timed run")
+        assert warm_retries >= 1 and retries >= 1, \
+            "long-read: the overflow-retry ladder never ran on the card"
+        sub = [0, 1, extra[MID_LONG[0]], extra[VERY_LONG]]
+        write_fasta(fa("long_cpu.fna"), [long_reads[i] for i in sub])
+        cpu = classifier("cpu", batch_size=len(sub), **long_kw)
+        t0 = time.perf_counter()
+        cpu_check("long-read", [r["results"][i] for i in sub],
+                  cpu.classify_file(fa("long_cpu.fna")))
+        print(f"long-read CPU check took {time.perf_counter() - t0:.1f} s: "
+              f"{cpu.timer.counts['retry']} retries from the default knobs, "
+              f"emission block {cpu._path_block} (card "
+              f"{clf._path_block}), cap {cpu.cap} (card {clf.cap})")
+        assert cpu.timer.counts["retry"] >= 1
+        if profiled:
+            write_fasta(fa("long10k.fna"), lr)
+            profile_path("long-read (10-kb reads)",
+                         lambda: clf.classify_file(fa("long10k.fna")),
+                         N_LONG, card)
+        clf = None
+        torch.cuda.empty_cache()
 
-    print(f"throughput: {N_READS / dt:.1f} reads/s ({dt:.3f} s for "
-          f"{N_READS} reads, batch {BATCH}) on {card}")
-    print(f"stage timer (host seconds) on {card}:")
-    print(clf.timer.report())
+        # ------------------------------------------------ host-match flow
+        write_fasta(fa("hm.fna"), reads[:N_HOST_MATCH])
+        clf = classifier(seq_mode=1, batch_size=BATCH, min_cons_cnt=1,
+                         **short)
+        assert not clf.use_device_dp
+        clf.classify_file(fa("warm.fna"))
+        r = runs["host-match"] = drive(
+            dp_cuda, clf, lambda: clf.classify_file(fa("hm.fna")))
+        assert r["launches"] == 0 and not r["calls"], \
+            "host-match: the path-DP kernel launched on a flow without it"
+        assert clf._match_state is not None
+        check_path("host-match", r, N_HOST_MATCH, src[:N_HOST_MATCH],
+                   dp_cuda, card)
+        stage_table("host-match", clf, card)
+        cpu = classifier("cpu", seq_mode=1, batch_size=N_CPU_CHECK,
+                         min_cons_cnt=1, **short)
+        cpu_check("host-match", r["results"][:N_CPU_CHECK],
+                  cpu.classify_file(fa("cpu.fna")))
+        if profiled:
+            profile_path("host-match",
+                         lambda: clf.classify_file(fa("hm.fna")),
+                         N_HOST_MATCH, card)
+        clf = None
+        torch.cuda.empty_cache()
 
-    # each launched cap's first input, timed back to back on the device
-    timed = {}
-    for cap, (args, kw) in first.items():
-        ms = time_cuda(lambda: launch(*args, **kw), 50, queue_ahead=True)
-        b_ms, b_by = kernel_bound_ms(args, kw)
-        timed[cap] = (ms, b_ms, b_by)
-        _, G, W = args[0].shape
-        print(f"path_dp {dp_cuda.variant(cap)} kernel at cap={cap} (G={G}, "
-              f"W={W}, S={kw['max_shift']}, block_w={kw['block_w']}): "
-              f"{ms:.4f} ms/launch, bound {b_ms:.5f} ms ({b_by}), "
-              f"{ms / b_ms:.1f}x bound, on {card}")
-    k_total = sum(timed[c][0] for c in calls)
-    print(f"path DP share of the run: {launches} launches x ms/launch = "
-          f"{k_total:.3f} ms of {dt * 1e3:.1f} ms wall "
-          f"({100 * k_total / (dt * 1e3):.2f}%)")
-    # the first launch's input: plain version and the block variant
-    args, kw = first[calls[0]]
-    p_ms = time_cuda(lambda: dp_cuda.path_dp_blocked_ref(*args, **kw), 3)
+    # ------------------------------- main-path parity and kernel timings
+    # the plain version runs once per long-read shape (seconds a call)
+    timed = {name: time_shapes(name, r, dp_cuda, card, max_err,
+                               reps=20 if name == "long-read" else 50,
+                               plain_reps=1 if name == "long-read" else 3)
+             for name, r in runs.items() if r["first"]}
+    n_main = sum(len(t) for t in timed.values())
+    print(f"parity main-path: {n_main} captured launch inputs exact, "
+          f"max_abs_err {max_err}")
+    for name, r in runs.items():
+        assert all(c in timed.get(name, ()) for c in r["calls"]), \
+            f"a {name} launch shape was not held against the plain " \
+            f"version (raise KEEP_INPUTS)"
+    se = runs["single-end"]
+    k_total = sum(timed["single-end"][c][0] for c in se["calls"])
+    print(f"path DP share of the single-end run: {se['launches']} launches "
+          f"x ms/launch = {k_total:.3f} ms of {se['dt'] * 1e3:.1f} ms wall "
+          f"({100 * k_total / (se['dt'] * 1e3):.2f}%)")
+    # the single-end path's first launch: the block variant beside it
+    key0 = se["calls"][0]
+    args, kw = se["first"][key0]
     blk_ms = time_cuda(lambda: dp_cuda._launch("block", args, **kw), 50,
                        queue_ahead=True)
-    print(f"at the first launch's input (cap={calls[0]}): plain version "
-          f"{p_ms:.3f} ms, block variant {blk_ms:.4f} ms/launch, "
-          f"{dp_cuda.variant(calls[0])} variant {timed[calls[0]][0]:.4f} "
-          f"ms/launch on {card}")
+    print(f"at the single-end path's first launch (cap={key0[0]}): plain "
+          f"version {timed['single-end'][key0][3]:.3f} ms, block variant "
+          f"{blk_ms:.4f} ms/launch, {dp_cuda.variant(key0[0])} variant "
+          f"{timed['single-end'][key0][0]:.4f} ms/launch on {card}")
 
     kernels = []
     for which, src_file, name in (
             ("warp", "path_dp_warp.cu", "path_dp"),
             ("block", "path_dp.cu", "path_dp_block")):
-        caps = [c for c in calls if dp_cuda.variant(c) == which]
-        if not caps:
-            print(f"{which} variant (csrc/{src_file}): not launched on the "
-                  f"main path (no launch at its caps); parity max_abs_err "
+        by_path = {p: r["counts"][which] for p, r in runs.items()}
+        # the variant's first launch on any path, single-end first
+        where = next(((p, k) for p, r in runs.items() for k in r["calls"]
+                      if dp_cuda.variant(k[0]) == which and k in r["first"]),
+                     None)
+        if where is None:
+            assert not any(by_path.values())
+            print(f"{which} variant (csrc/{src_file}): not launched on any "
+                  f"path (no launch at its caps); parity max_abs_err "
                   f"{max_err[which]}")
             continue
-        cap = caps[0]                     # its first main-path launch
-        args, kw = first[cap]
-        ms, b_ms, b_by = timed[cap]
+        path, key = where
+        ms, b_ms, b_by, plain_ms, _ = timed[path][key]
         kernels.append({
             "name": name,
             "variant": which,
-            "cap": cap,
+            "path": path,
+            "cap": key[0],
             "route": "cuda",
             "source": f"metabuli_work_tpu_torch/csrc/{src_file}",
             "replaces": "metabuli_work_tpu/ops/dp_pallas.py:88",
-            "launches": counts[which],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max_err[which],
             "ms": ms,
-            "plain_ms": p_ms if cap == calls[0] else time_cuda(
-                lambda: dp_cuda.path_dp_blocked_ref(*args, **kw), 3),
+            "plain_ms": plain_ms,
             "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": None,
+            "shapes": [{"path": p, "cap": k[0], "W": k[1],
+                        "columns": 5 if k[2] else 7, "ms": v[0],
+                        "bound_ms": v[1], "bound_by": v[2],
+                        "plain_ms": v[3], "max_abs_err": v[4]}
+                       for p, t in timed.items() for k, v in t.items()
+                       if dp_cuda.variant(k[0]) == which],
         })
+    assert kernels, "no path-DP kernel was launched on any path"
 
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
@@ -494,4 +839,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -2,8 +2,10 @@
 
 Host-side numpy packing of the sorted index (pack_db_quad,
 pack_db_rows32, build_aa_hash), a disk cache of the packed layout
-(load_or_pack_wide), and state_from_numpy, which turns the packed
-index and LCA tables into the tensors the device step reads.
+(load_or_pack_wide), state_from_numpy, which turns the packed index and
+LCA tables into the tensors the path-DP device step reads, and
+match_state_from_numpy, the raw sorted arrays plus bucket tables that
+the host-match step probes instead.
 
 Every u32 array is carried on the device as int32 holding the same
 bits (torch has no usable uint32 arithmetic on every backend); the
@@ -220,4 +222,26 @@ def state_from_numpy(rows, hash_table, hash_log2_rows, hash_chain, db_m,
         "lca_lift": _as_i32(lift, device),
         "euler": _as_i32(euler, device),
         "ef_node": _as_i32(ef_node, device),
+    }
+
+
+def match_state_from_numpy(values, taxids, species, bucket_pair, aa_lo,
+                           bucket_shift, bucket_steps, device):
+    """Device state of the host-match probe (ops/match_torch.match_kmers):
+    the raw sorted arrays — metamers as int64 holding the u64 bits,
+    taxids and species as int32 — and the bucket tables of
+    match_torch.build_buckets (the u32 low AA halves as int32 bits).
+    20 B per metamer beside the wide rows, so a classifier uploads it
+    only when it first needs the host-match step."""
+    v = np.ascontiguousarray(values, dtype=np.uint64).view(np.int64)
+    if not v.flags.writeable:
+        v = v.copy()
+    return {
+        "db_values": torch.from_numpy(v).to(device),
+        "db_taxids": _as_i32(taxids, device),
+        "db_species": _as_i32(species, device),
+        "bucket_lo": _as_i32(bucket_pair, device),
+        "db_aa_lo": _as_i32(aa_lo, device),
+        "bucket_shift": int(bucket_shift),
+        "bucket_steps": int(bucket_steps),
     }

@@ -1,85 +1,162 @@
-"""The device step: fused extract + probe + path DP for one read batch,
-and the best-species redundancy step that follows host scoring.
+"""The device steps: fused extract + probe + path DP for one read batch
+(single-end, or paired with mate 2 as a second part), the best-species
+redundancy step that follows host scoring, and the host-match step
+(extract + raw-array probe + match compaction).
 
-fused_step_dp is everything the device does per batch of single-end
-reads on the host-scoring flow; the host then scores species from the
-emitted paths and hands the best species per read back to
-redundancy_counts.
+fused_step_dp is everything the device does per batch on the
+host-scoring flow; the host then scores species from the emitted paths
+and hands the best species per read back to redundancy_counts.
+fused_step is the device half of the host-match flow (min_cons_cnt < 2,
+and the chunks of reads beyond the long-read row cap): it returns the
+compacted raw matches and the host runs the whole scorer on them.
+reads2=None means unpaired everywhere.
 """
 
 import torch
 
-from ..ops import dp_cuda, dp_torch, encode_torch, match_torch
+from ..ops import compact_torch, dp_cuda, dp_torch, encode_torch, match_torch
 
 
 def _dyn_gap(syncmer, kmer_format, win_frac):
     return bool(syncmer and kmer_format == 2 and 0 < win_frac < 256)
 
 
-def _extract_all(reads1, lens1, ra1, *, syncmer, smer_len, kmer_format,
-                 win_frac):
-    """Query extraction: 6-frame metamer encode + optional syncmer window
-    compaction.
+def _max_covered_dev(lens):
+    """getMaxCoveredLength on the device: len - (3, 4, 2)[len % 3]."""
+    r = lens % 3
+    sub = torch.where(r == 0, 3, torch.where(r == 1, 4, 2))
+    return torch.clamp(lens - sub, min=0)
 
-    Returns flat (qk, qp, qf, qs, qv) query tensors, the [B, 6, W]
-    shape, and the window-compaction overflow count."""
+
+def _mate2_offset(lens1):
+    """Mate-2 positions are offset by maxCoveredLength(len1) + 3
+    (KmerExtractor.cpp:341-346: queryLength is getMaxCoveredLength)."""
+    return (_max_covered_dev(lens1) + 3).to(torch.int32)[:, None, None]
+
+
+def fused_step(reads1, lens1, reads2, lens2, db_values, db_taxids,
+               db_species, cap: int = 16, kmer_format: int = 2,
+               syncmer: bool = False, smer_len: int = 5, bucket_lo=None,
+               db_aa_lo=None, bucket_shift: int = 0, bucket_steps: int = 0):
+    """Host-match device step: extract (+mate 2) -> raw-array probe ->
+    match compaction.
+
+    Returns (packed int32 [6, N*cap], count, overflow); see
+    ops/compact_torch.py for the packed columns."""
+    dev = reads1.device
+    b = reads1.shape[0]
+    sids = torch.arange(1, b + 1, dtype=torch.int32, device=dev)
+    kw = dict(syncmer=syncmer, smer_len=smer_len, kmer_format=kmer_format)
+    kmers, pos, valid = encode_torch.extract_batch(reads1, lens1, **kw)
+    parts = [encode_torch.flatten_batch(kmers, pos, valid, sids)]
+    if reads2 is not None:
+        k2, p2, v2 = encode_torch.extract_batch(reads2, lens2, **kw)
+        parts.append(encode_torch.flatten_batch(
+            k2, p2 + _mate2_offset(lens1), v2, sids))
+    qk, qp, qf, qs, qv = (torch.cat(c) for c in zip(*parts))
+    out = match_torch.match_kmers(qk, qf, qv, db_values, db_taxids,
+                                  db_species, cap=cap,
+                                  kmer_format=kmer_format,
+                                  bucket_lo=bucket_lo, db_aa_lo=db_aa_lo,
+                                  bucket_shift=bucket_shift,
+                                  bucket_steps=bucket_steps)
+    packed, count = compact_torch.compact_and_sort(out, qp, qf, qs)
+    return packed, count, out["overflow"]
+
+
+def _extract_all(reads1, lens1, reads2, lens2, ra1, ra2, *, syncmer,
+                 smer_len, kmer_format, win_frac):
+    """Query extraction: 6-frame metamer encode (+ mate 2 as a second part
+    with the len1+3 position offset) + optional syncmer window compaction
+    per part.
+
+    Returns flat (qk, qp, qf, qs, qv) query tensors (parts concatenated),
+    the per-part (B, 6, W) shapes, and the window-compaction overflow
+    count summed over parts."""
     # syncmer window compaction: only ~half the windows pass the anchor
     # rule — shrink the W axis to win_frac/256 of its static size before
     # probing (the dyn_gap path DP chains compacted slots by real
     # position gaps).  win_frac == 0 or >= 256 disables compaction.
     dyn_gap = _dyn_gap(syncmer, kmer_format, win_frac)
-    kk, pp, vv = encode_torch.extract_batch(reads1, lens1, syncmer=syncmer,
-                                            smer_len=smer_len,
-                                            kmer_format=kmer_format,
-                                            reads_ra=ra1)
-    win_over = torch.zeros((), dtype=torch.int32, device=reads1.device)
-    if dyn_gap:
-        W = kk.shape[2]
-        w_c = max(min((W * win_frac + 255) // 256, W), 1)
-        kk, pp, vv, win_over = encode_torch.compact_windows(kk, pp, vv, w_c)
+    dev = reads1.device
+    win_over = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def extract_part(reads, lens, ra):
+        nonlocal win_over
+        kk, pp, vv = encode_torch.extract_batch(reads, lens, syncmer=syncmer,
+                                                smer_len=smer_len,
+                                                kmer_format=kmer_format,
+                                                reads_ra=ra)
+        if dyn_gap:
+            W = kk.shape[2]
+            w_c = max(min((W * win_frac + 255) // 256, W), 1)
+            kk, pp, vv, over = encode_torch.compact_windows(kk, pp, vv, w_c)
+            win_over = win_over + over
+        return kk, pp, vv
+
     b = reads1.shape[0]
-    sids = torch.arange(1, b + 1, dtype=torch.int32, device=reads1.device)
-    qk, qp, qf, qs, qv = encode_torch.flatten_batch(kk, pp, vv, sids)
-    return qk, qp, qf, qs, qv, tuple(kk.shape), win_over
+    sids = torch.arange(1, b + 1, dtype=torch.int32, device=dev)
+    k1, p1, v1 = extract_part(reads1, lens1, ra1)
+    parts = [encode_torch.flatten_batch(k1, p1, v1, sids)]
+    shapes = [tuple(k1.shape)]
+    if reads2 is not None:
+        k2, p2, v2 = extract_part(reads2, lens2, ra2)
+        parts.append(encode_torch.flatten_batch(
+            k2, p2 + _mate2_offset(lens1), v2, sids))
+        shapes.append(tuple(k2.shape))
+    qk, qp, qf, qs, qv = (torch.cat(c) for c in zip(*parts))
+    return qk, qp, qf, qs, qv, shapes, win_over
 
 
-def _dp_from_probe(out, qp, qs, shape, win_over, *, cap, kmer_format,
+def _dp_from_probe(out, qp, qs, shapes, win_over, *, cap, kmer_format,
                    syncmer, smer_len, min_cons, min_cons_euk, path_width,
                    path_block, win_frac, compact5):
-    """Post-probe half of the fused step: lane flip + fused path DP (the
-    CUDA kernel on the card, its plain version on the CPU) + static-width
-    compaction of the emitted paths."""
-    B, F, W = shape
-    resh = lambda a: a.reshape(cap, B * F, W)
+    """Post-probe half of the fused step, per part: lane flip + fused
+    path DP (the CUDA kernel on the card, its plain version on the CPU);
+    then one static-width compaction of all parts' emitted paths.  Each
+    part's lanes restart at 0 in read order, so a lane id maps to its
+    read the same way in every part."""
     fl = lambda a: dp_torch.flip_lanes(a, kmer_format).contiguous()
-    # the euk flag rides in species bit 30 straight through the DP's
-    # species-equality compares (the bit is constant per species); the
-    # DP strips it at emission
-    sp_m = torch.where(resh(out["sel"]), resh(out["species"]), -1)
-    pos = qp.reshape(1, B * F, W).expand(cap, B * F, W)
-    cols, psel, blk_over = dp_cuda.path_dp_blocked(
-        fl(sp_m), fl(resh(out["dna_enc"])), fl(resh(out["rh"])),
-        fl(resh(out["hamming"])), fl(pos),
-        min_cons=min_cons, min_cons_euk=min_cons_euk,
-        max_shift=(8 - smer_len) if syncmer else 1, kmer_format=kmer_format,
-        dyn_gap=_dyn_gap(syncmer, kmer_format, win_frac),
-        block_w=path_block, compact5=compact5)
+    dyn_gap = _dyn_gap(syncmer, kmer_format, win_frac)
+    blk_over = torch.zeros((), dtype=torch.int32, device=qp.device)
+    col_parts, sel_parts = [], []
+    offset = 0
+    for B, F, W in shapes:
+        sl = slice(offset, offset + B * F * W)
+        offset += B * F * W
+        resh = lambda a: a[:, sl].reshape(cap, B * F, W)
+        # the euk flag rides in species bit 30 straight through the DP's
+        # species-equality compares (the bit is constant per species);
+        # the DP strips it at emission
+        sp_m = torch.where(resh(out["sel"]), resh(out["species"]), -1)
+        pos = qp[sl].reshape(1, B * F, W).expand(cap, B * F, W)
+        cols, psel, b_over = dp_cuda.path_dp_blocked(
+            fl(sp_m), fl(resh(out["dna_enc"])), fl(resh(out["rh"])),
+            fl(resh(out["hamming"])), fl(pos),
+            min_cons=min_cons, min_cons_euk=min_cons_euk,
+            max_shift=(8 - smer_len) if syncmer else 1,
+            kmer_format=kmer_format, dyn_gap=dyn_gap, block_w=path_block,
+            compact5=compact5)
+        blk_over = blk_over + b_over
+        col_parts.append(cols)
+        sel_parts.append(psel)
     paths_packed, paths_count = dp_torch.compact_columns(
-        cols, psel, out_width=path_width)
+        torch.cat(col_parts, 1), torch.cat(sel_parts), out_width=path_width)
     resident = (out["sel"], out["species"] & 0x3FFFFFFF, out["hamming"],
                 out["taxid"], qp, qs)
     stats = torch.stack([out["overflow"], paths_count, win_over, blk_over])
     return stats, paths_packed, resident
 
 
-def fused_step_dp(reads1, lens1, db_quad, *, min_cons: int = 4,
-                  min_cons_euk: int = 9, cap: int = 16, kmer_format: int = 2,
-                  syncmer: bool = False, smer_len: int = 5,
-                  path_width: int = 0, win_frac: int = 0,
-                  path_block: int = 16, ra1=None, hash_table=None,
+def fused_step_dp(reads1, lens1, db_quad, *, reads2=None, lens2=None,
+                  min_cons: int = 4, min_cons_euk: int = 9, cap: int = 16,
+                  kmer_format: int = 2, syncmer: bool = False,
+                  smer_len: int = 5, path_width: int = 0, win_frac: int = 0,
+                  path_block: int = 16, ra1=None, ra2=None, hash_table=None,
                   hash_log2_rows: int = 0, hash_chain: int = 0,
                   db_m: int = None):
-    """extract -> probe -> path DP -> compaction for one single-end batch.
+    """extract (+mate 2) -> probe -> path DP per part -> compaction for
+    one batch.
 
     Returns (packed_hdr [C, 1+P] int32, resident): column 0 of packed_hdr
     is a stats header (rows 0-3 = candidate-cap overflow, path count,
@@ -88,19 +165,22 @@ def fused_step_dp(reads1, lens1, db_quad, *, min_cons: int = 4,
     q_pos, q_sids) stays on the device for redundancy_counts.  The header
     rides in the path array so one device->host copy brings both home.
     """
-    qk, qp, qf, qs, qv, shape, win_over = _extract_all(
-        reads1, lens1, ra1, syncmer=syncmer, smer_len=smer_len,
-        kmer_format=kmer_format, win_frac=win_frac)
+    qk, qp, qf, qs, qv, shapes, win_over = _extract_all(
+        reads1, lens1, reads2, lens2, ra1, ra2, syncmer=syncmer,
+        smer_len=smer_len, kmer_format=kmer_format, win_frac=win_frac)
     out = match_torch.match_kmers_quad(
         qk, qf, qv, db_quad, cap=cap, kmer_format=kmer_format,
         hash_table=hash_table, hash_log2_rows=hash_log2_rows,
         hash_chain=hash_chain, db_m=db_m)
     # compact 5-column path layout when every 16-bit field provably
-    # fits (g < 2^16, end+26 < 2^16, path hamming < 2^16)
+    # fits (g < 2^16, end+26 < 2^16, path hamming < 2^16); long reads
+    # beyond 16 kb keep the 7-column layout
     b = reads1.shape[0]
-    compact5 = (b * 6 < (1 << 16)) and (reads1.shape[1] < (1 << 14))
+    lmax_all = reads1.shape[1] + (reads2.shape[1] + 3
+                                  if reads2 is not None else 0)
+    compact5 = (b * 6 < (1 << 16)) and (lmax_all < (1 << 14))
     stats, paths_packed, resident = _dp_from_probe(
-        out, qp, qs, shape, win_over, cap=cap, kmer_format=kmer_format,
+        out, qp, qs, shapes, win_over, cap=cap, kmer_format=kmer_format,
         syncmer=syncmer, smer_len=smer_len, min_cons=min_cons,
         min_cons_euk=min_cons_euk, path_width=path_width,
         path_block=path_block, win_frac=win_frac, compact5=compact5)
@@ -110,13 +190,17 @@ def fused_step_dp(reads1, lens1, db_quad, *, min_cons: int = 4,
     return torch.cat([hdr, paths_packed], 1), resident
 
 
-def part_widths(lmax1, syncmer, kmer_format, smer_len, win_frac):
-    """Per-read flat slot count (6 frames x compacted windows); the
-    redundancy step rebuilds read ids from it by broadcast."""
-    W = encode_torch.max_windows(lmax1)
-    if _dyn_gap(syncmer, kmer_format, win_frac):
-        W = max(min((W * win_frac + 255) // 256, W), 1)
-    return (6 * W,)
+def part_widths(lmax1, syncmer, kmer_format, smer_len, win_frac, lmax2=None):
+    """Per-read flat slot count (6 frames x compacted windows) per part
+    (two parts when lmax2 is given: paired); the redundancy step rebuilds
+    read ids from it by broadcast."""
+    def one(lmax):
+        W = encode_torch.max_windows(lmax)
+        if _dyn_gap(syncmer, kmer_format, win_frac):
+            W = max(min((W * win_frac + 255) // 256, W), 1)
+        return 6 * W
+
+    return (one(lmax1),) if lmax2 is None else (one(lmax1), one(lmax2))
 
 
 def _lca_pair_lift(a, b, depth, lift):

@@ -1,11 +1,20 @@
-"""Index probe + candidate hamming filter over the resident wide index.
+"""Index probe + candidate hamming filter over the resident index.
 
-The DB is a sorted metamer array packed into 512-byte rows
-(index/packing.py: 32 entries of (value_lo32, value_hi32, payload_lo,
-payload_hi) per row) plus a hash of the unique 40-bit AA parts that maps
-each to its run start and run length.  The probe is a point lookup of
-every query's AA run, a gather of its first ``cap`` run entries, and a
-vectorized per-codon hamming filter (reference compareDna,
+Two probes share the hamming filter:
+
+* match_kmers_quad (the path-DP flow): the sorted metamer array packed
+  into 512-byte rows (index/packing.py: 32 entries of (value_lo32,
+  value_hi32, payload_lo, payload_hi) per row) plus a hash of the unique
+  40-bit AA parts that maps each to its run start and run length.  The
+  probe is a point lookup of every query's AA run and a gather of its
+  first ``cap`` run entries.
+* match_kmers / match_kmers_cm (the host-match flow): the raw sorted
+  arrays (values, taxids, species).  The run start comes from one
+  bucket-pair gather plus a short bisection on the low 32 AA bits
+  (build_buckets), or from a full searchsorted without the tables; a
+  ``cap + 1``'th window row tells overflow.
+
+Both end in a vectorized per-codon hamming filter (reference compareDna,
 src/commons/KmerMatcher.cpp:1117-1146).
 
 Equivalence notes:
@@ -23,12 +32,14 @@ Index words are u32 bits carried as int32 and metamers u64 bits carried
 as int64: every right shift is followed by a mask.
 """
 
+import numpy as np
 import torch
 
 from ..index.packing import DNA_BITS, EF_BITS, _HASH_MUL1, _HASH_MUL2
 from .genetic_code import HAMMING_TABLE, KMER_LEN
 
 _M32 = 0xFFFFFFFF
+_M40 = (1 << 40) - 1
 
 
 def _i32_bits(x):
@@ -90,7 +101,7 @@ def match_kmers_quad(q_kmers, q_frames, q_valid, db_quad, cap: int,
             "only the wide-row hash probe is ported (ROADMAP.md, Queue 1 "
             "item 3)")
     M = db_m if db_m is not None else db_quad.shape[0] * 32
-    q_aa = (q_kmers >> DNA_BITS) & ((1 << 40) - 1)
+    q_aa = (q_kmers >> DNA_BITS) & _M40
     lo, rlen = _hash_search(q_aa, hash_table, hash_log2_rows, hash_chain, M)
 
     # the run length from the hash tells overflow, so the window is
@@ -156,3 +167,117 @@ def _hamming_filter(t_dna, q_dna, cmask, q_frames, kmer_format: int):
     use_fwd = ~(fwd_frame ^ (kmer_format == 2))
     rh = torch.where(use_fwd[None, :], rh_fwd, rh_rev)
     return sel, hsum, rh
+
+
+def build_buckets(values: np.ndarray, max_bits: int = 24):
+    """Host-side bucket table over the AA part of a sorted metamer array.
+
+    Returns (bucket_pair int32 [2^bits, 2], aa_lo uint32 [M], shift,
+    steps): bucket b covers AA parts whose top ``40-shift`` bits equal
+    b, so a probe narrows to [pair[b,0], pair[b,1]) with ONE row gather
+    and finishes with ``steps`` binary-search iterations comparing only
+    the low 32 AA bits (valid because bits >= 8).  The reference's
+    analogue is the 4096-entry `split` checkpoint table
+    (IndexCreator.cpp:811-866).
+    """
+    aa = (values >> np.uint64(DNA_BITS)).astype(np.uint64)
+    m = len(aa)
+    bits = int(min(max_bits, max(8, int(np.ceil(np.log2(max(m, 2)))) + 3)))
+    shift = 40 - bits
+    b = (aa >> np.uint64(shift)).astype(np.int64)
+    counts = np.bincount(b, minlength=1 << bits)
+    bucket_lo = np.zeros((1 << bits) + 1, dtype=np.int32)
+    np.cumsum(counts, out=bucket_lo[1:])
+    bucket_pair = np.ascontiguousarray(
+        np.stack([bucket_lo[:-1], bucket_lo[1:]], axis=1))
+    max_run = int(counts.max()) if m else 0
+    steps = max(1, int(np.ceil(np.log2(max_run + 1)))) if max_run else 1
+    aa_lo = (aa & np.uint64(_M32)).astype(np.uint32)
+    return bucket_pair, aa_lo, shift, steps
+
+
+def _bucket_search(q_aa, bucket_lo, db_aa_lo, bucket_shift: int,
+                   bucket_steps: int, M: int):
+    """Left-edge binary search: ONE bucket-pair row gather + low-32-bit
+    bisection.  q_aa int64 (40-bit, non-negative); bucket_lo int32
+    [2^bits, 2] (lo, hi) pairs; db_aa_lo int32 holding u32 bits, widened
+    to int64 and masked before every compare (an unsigned compare)."""
+    pair = bucket_lo[q_aa >> bucket_shift].to(torch.int64)
+    lo, hi = pair[:, 0], pair[:, 1]
+    q_lo32 = q_aa & _M32
+    for _ in range(bucket_steps):
+        active = lo < hi
+        mid = (lo + hi) >> 1
+        v = db_aa_lo[torch.clamp(mid, 0, M - 1)].to(torch.int64) & _M32
+        go = active & (v < q_lo32)
+        hi = torch.where(active & ~go, mid, hi)
+        lo = torch.where(go, mid + 1, lo)
+    return lo
+
+
+def match_kmers_cm(q_kmers, q_frames, q_valid, db_values, db_taxids,
+                   db_species, cap: int = 64, kmer_format: int = 2,
+                   bucket_lo=None, db_aa_lo=None, bucket_shift: int = 0,
+                   bucket_steps: int = 0):
+    """Probe the sorted DB arrays with query metamers — cap-MAJOR layout.
+
+    db_values int64 [M] (u64 metamer bits, sorted as unsigned),
+    db_taxids / db_species int32 [M].  One search finds each query's run
+    start; run membership is an equality test on the gathered AA parts
+    (the reference's two-pointer merge makes the same comparison,
+    KmerMatcher.cpp:251-466), and overflow is detected by probing one
+    extra slot past the cap.
+
+    Returns a dict of [cap, N] tensors: sel (bool), hamming (int32 sum),
+    rh (int32, 16-bit packed per-codon), taxid, species, dna_enc (int32,
+    target 24-bit DNA part), plus overflow (int32 scalar: queries whose
+    run exceeded cap).
+    """
+    dna_mask = (1 << DNA_BITS) - 1
+    M = db_values.shape[0]
+    q_aa = (q_kmers >> DNA_BITS) & _M40
+
+    if bucket_lo is not None:
+        lo = _bucket_search(q_aa, bucket_lo, db_aa_lo, bucket_shift,
+                            bucket_steps, M)
+    else:
+        db_aa = (db_values >> DNA_BITS) & _M40
+        lo = torch.searchsorted(db_aa, q_aa, side="left")
+
+    # one extra row past the cap: a query whose run still matches there
+    # overflowed (the pipeline retries with a doubled cap while any
+    # query overflows)
+    offs = torch.arange(cap + 1, device=lo.device)[:, None]
+    pos = lo[None, :] + offs
+    idx = torch.clamp(pos, 0, M - 1)
+    t_vals = db_values[idx]
+    cmask = (((t_vals >> DNA_BITS) & _M40) == q_aa[None, :]) \
+        & (pos < M) & q_valid[None, :]
+    overflow = cmask[cap].sum().to(torch.int32)
+    cmask = cmask[:cap]
+    idx = idx[:cap]
+
+    t_dna = (t_vals[:cap] & dna_mask).to(torch.int32)
+    q_dna = (q_kmers & dna_mask).to(torch.int32)[None, :]
+    sel, hsum, rh = _hamming_filter(t_dna, q_dna, cmask, q_frames,
+                                    kmer_format)
+    return {
+        "sel": sel,
+        "hamming": hsum,
+        "rh": rh,
+        "taxid": db_taxids[idx],
+        "species": db_species[idx],
+        "dna_enc": t_dna,
+        "overflow": overflow,
+    }
+
+
+def match_kmers(q_kmers, q_frames, q_valid, db_values, db_taxids, db_species,
+                cap: int = 64, kmer_format: int = 2, bucket_lo=None,
+                db_aa_lo=None, bucket_shift: int = 0, bucket_steps: int = 0):
+    """match_kmers_cm with the query-major [N, cap] public layout."""
+    out = match_kmers_cm(q_kmers, q_frames, q_valid, db_values, db_taxids,
+                         db_species, cap=cap, kmer_format=kmer_format,
+                         bucket_lo=bucket_lo, db_aa_lo=db_aa_lo,
+                         bucket_shift=bucket_shift, bucket_steps=bucket_steps)
+    return {k: (v if v.ndim == 0 else v.T) for k, v in out.items()}

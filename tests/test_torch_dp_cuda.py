@@ -1,8 +1,8 @@
 """The path-DP CUDA kernels against their plain torch version on the
 card, bit-exact, over the JAX parity grid, the block-overflow case and
-the shapes where the kernels branch; each case must launch the variant
-its cap selects.  No JAX import: on a machine with a card and without
-JAX run it as
+the shapes where the kernels branch and the long rows and mate pairs of
+--seq-mode 3 and 2; each case must launch the variant its cap selects.
+No JAX import: on a machine with a card and without JAX run it as
 
     python -m pytest tests/test_torch_dp_cuda.py -m cuda --noconftest
 """
@@ -13,7 +13,7 @@ import torch
 
 from metabuli_work_tpu_torch.ops import dp_cuda
 
-from torch_dp_cases import (EDGES, GRID, edge_case, overflow_case,
+from torch_dp_cases import (EDGES, GRID, LONG_W, edge_case, overflow_case,
                             random_case, torch_blocked)
 
 
@@ -21,15 +21,20 @@ from torch_dp_cases import (EDGES, GRID, edge_case, overflow_case,
 def test_cuda_kernel_matches_plain_version():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    both = (True, False)
     cases = [(random_case(np.random.default_rng(42 + s + kf), 4, 12, 9,
-                          dyn_gap=dg), s, kf, dg, 8)
+                          dyn_gap=dg), s, kf, dg, 8, both)
              for dg, s, kf in GRID]
-    cases.append((overflow_case(), 1, 2, False, 2))
+    cases.append((overflow_case(), 1, 2, False, 2, both))
     for name, cap, G, W, S, kf, dg, bw, density in EDGES:
-        cases.append((edge_case(name, cap, G, W, density, dg), S, kf, dg, bw))
-    for case, S, kf, dg, bw in cases:
+        cases.append((edge_case(name, cap, G, W, density, dg), S, kf, dg, bw,
+                      both))
+    for name, cap, G, W, S, kf, dg, bw, density, c5s in LONG_W:
+        cases.append((edge_case(name, cap, G, W, density, dg), S, kf, dg, bw,
+                      c5s))
+    for case, S, kf, dg, bw, c5s in cases:
         cap = case[0].shape[0]
-        for compact5 in (True, False):
+        for compact5 in c5s:
             ref = torch_blocked(case, 2, 3, S, kf, dg, bw, compact5, "cuda",
                                 fn=dp_cuda.path_dp_blocked_ref)
             n0, nw, nb = (dp_cuda.launches, dp_cuda.warp_launches,

@@ -1,5 +1,8 @@
-"""Torch wide-row hash probe vs the JAX package's match_kmers_quad, and
-the port's index packing vs the JAX package's, bit-exact."""
+"""Torch probes vs the JAX package's — the wide-row hash probe
+(match_kmers_quad) and the raw-array probe of the host-match flow
+(match_kmers, match_kmers_cm, with and without bucket tables) — and the
+port's index packing and bucket tables vs the JAX package's.  Tolerance
+0: every integer tensor equal."""
 
 import numpy as np
 import pytest
@@ -88,3 +91,61 @@ def test_match_kmers_quad_matches_jax(db, cap):
         np.testing.assert_array_equal(np.asarray(ref[key]), got[key].numpy(),
                                       key)
     assert bool(np.asarray(ref["sel"]).any())
+
+
+def _queries(genomes, seed):
+    """Flat JAX query tensors of 12 reads (2 of random sequence: misses)."""
+    reads, _ = simulate_reads(genomes, 12, seed=seed)
+    reads[:2] = np.random.default_rng(9).choice(
+        np.frombuffer(b"ACGT", np.uint8), size=(2, reads.shape[1]))
+    lens = np.full(len(reads), reads.shape[1], np.int32)
+    k, p, v = encode_jax.extract_batch(jnp.asarray(reads), jnp.asarray(lens),
+                                       syncmer=True)
+    qk, _, qf, _, qv = encode_jax.flatten_batch(
+        k, p, v, jnp.arange(1, len(reads) + 1, dtype=jnp.int32))
+    return qk, qf, qv
+
+
+def test_build_buckets_matches_jax(db):
+    index, _ = db
+    ref = match_jax.build_buckets(index.values)
+    got = match_torch.build_buckets(index.values)
+    for a, b in zip(ref[:2], got[:2]):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert ref[2:] == got[2:]
+
+
+# cap 1 overflows (the DB's species share most AA runs), cap 8 does not
+@pytest.mark.parametrize("fn", ["match_kmers", "match_kmers_cm"])
+@pytest.mark.parametrize("buckets", [True, False], ids=["buckets", "search"])
+@pytest.mark.parametrize("cap", [1, 8])
+def test_match_kmers_matches_jax(db, cap, buckets, fn):
+    index, genomes = db
+    qk, qf, qv = _queries(genomes, seed=cap)
+    taxids = index.taxids.astype(np.int32)
+    species = index.species.astype(np.int32)
+    jkw, tkw = {}, {}
+    if buckets:
+        b_lo, aa_lo, shift, steps = match_torch.build_buckets(index.values)
+        jkw = dict(bucket_lo=jnp.asarray(b_lo), db_aa_lo=jnp.asarray(aa_lo),
+                   bucket_shift=shift, bucket_steps=steps)
+        st = packing.match_state_from_numpy(index.values, taxids, species,
+                                            b_lo, aa_lo, shift, steps, "cpu")
+        tkw = {k: st[k] for k in ("bucket_lo", "db_aa_lo", "bucket_shift",
+                                  "bucket_steps")}
+    ref = getattr(match_jax, fn)(
+        qk, qf, qv, jnp.asarray(index.values), jnp.asarray(taxids),
+        jnp.asarray(species), cap=cap, kmer_format=2, **jkw)
+    got = getattr(match_torch, fn)(
+        torch.from_numpy(np.array(qk).view(np.int64)),
+        torch.from_numpy(np.array(qf)), torch.from_numpy(np.array(qv)),
+        torch.from_numpy(index.values.view(np.int64).copy()),
+        torch.from_numpy(taxids), torch.from_numpy(species), cap=cap,
+        kmer_format=2, **tkw)
+    assert set(ref) == set(got) and len(got) == 7
+    for key in ref:
+        np.testing.assert_array_equal(np.asarray(ref[key]), got[key].numpy(),
+                                      key)
+    assert bool(np.asarray(ref["sel"]).any())
+    assert (int(ref["overflow"]) > 0) == (cap == 1)

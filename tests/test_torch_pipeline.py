@@ -1,7 +1,8 @@
-"""Torch Classifier and CLI vs the JAX package's, end to end on the CPU:
-identical DB arrays from both builders, identical per-read
-(is_classified, classification, score) tuples, and byte-identical
-classification and report files."""
+"""Torch Classifier and CLI vs the JAX package's, end to end on the CPU,
+in all three sequence modes and both host flows: identical DB arrays
+from both builders, identical per-read (name, is_classified,
+classification, score) tuples (tolerance 0, f32 scores bit-equal), and
+byte-identical classification and report files."""
 
 import os
 
@@ -18,7 +19,8 @@ from metabuli_work_tpu_torch.classify.pipeline import Classifier, ClassifyParams
 from metabuli_work_tpu_torch.index.builder import build_database as tbuild
 from metabuli_work_tpu_torch.index.format import load_index as tload
 
-from torch_port_db import build_db, simulate_reads, write_inputs, write_reads
+from torch_port_db import (build_db, simulate_pairs, simulate_reads,
+                           write_inputs, write_reads)
 
 PARAMS = dict(seq_mode=1, min_score=0.15, min_sp_score=0.5, batch_size=8)
 
@@ -34,6 +36,12 @@ def dbs(request, tmp_path_factory):
                                           size=(2, reads.shape[1]))
     path = os.path.join(root, "reads.fna")
     write_reads(path, np.concatenate([reads, rnd]))
+    # pairs (mate 2 in another length bucket, two pairs of random sequence)
+    m1, m2, _ = simulate_pairs(genomes, 20, seed=3)
+    m1 = np.concatenate([m1, rnd])
+    m2 = np.concatenate([m2, rnd[::-1]])[:, :141]
+    write_reads(os.path.join(root, "r1.fna"), m1)
+    write_reads(os.path.join(root, "r2.fna"), m2)
     return root, jdb, tdb, path
 
 
@@ -77,12 +85,111 @@ def test_cli_outputs_byte_identical(dbs, capsys):
         assert ref
 
 
-def test_unported_configurations_raise(dbs):
+def _both(jdb, kw, *paths, tweak=None):
+    """(JAX tuples, torch tuples) of classify_file under the same params."""
+    params = {**PARAMS, **kw}
+    jclf = JClassifier(jdb, JParams(**params))
+    tclf = Classifier(jdb, ClassifyParams(**params), device="cpu")
+    for c in (jclf, tclf):
+        if tweak:
+            tweak(c)
+    return (_tuples(jclf.classify_file(*paths)),
+            _tuples(tclf.classify_file(*paths)), tclf)
+
+
+def test_paired_classifier_matches_jax(dbs):
+    root, jdb, _, _ = dbs
+    r1, r2 = os.path.join(root, "r1.fna"), os.path.join(root, "r2.fna")
+    ref, got, _ = _both(jdb, dict(seq_mode=2), r1, r2)
+    assert got == ref
+    assert sum(t[1] for t in got) >= 18
+    # the second file is read in --seq-mode 2 only
+    single = _tuples(Classifier(jdb, ClassifyParams(**PARAMS),
+                                device="cpu").classify_file(r1, r2))
+    alone = _tuples(Classifier(jdb, ClassifyParams(**PARAMS),
+                               device="cpu").classify_file(r1))
+    assert single == alone != got
+
+
+def test_paired_records_carry_both_mates(dbs):
+    root, jdb, _, _ = dbs
+    r1, r2 = os.path.join(root, "r1.fna"), os.path.join(root, "r2.fna")
+    p = {**PARAMS, "seq_mode": 2}
+    ref = JClassifier(jdb, JParams(**p)).classify_file(r1, r2)
+    got = Classifier(jdb, ClassifyParams(**p),
+                     device="cpu").classify_file(r1, r2)
+    assert [(q.length1, q.length2, q.total_length, q.covered_length)
+            for q in got] == [(q.length1, q.length2, q.total_length,
+                               q.covered_length) for q in ref]
+    assert got[0].length2 == 141 and got[0].covered_length == 147 + 138
+
+
+def test_host_match_state_uploads_at_first_use(dbs):
+    root, jdb, _, reads = dbs
+    clf = Classifier(jdb, ClassifyParams(**PARAMS), device="cpu")
+    clf.classify_file(reads)
+    assert clf._match_state is None         # the path-DP flow never needs it
+    clf = Classifier(jdb, ClassifyParams(**{**PARAMS, "min_cons_cnt": 1}),
+                     device="cpu")
+    assert not clf.use_device_dp and not hasattr(clf, "db_quad")
+    clf.classify_file(reads)
+    assert clf._match_state["db_values"].dtype.is_signed
+
+
+@pytest.mark.parametrize("seq_mode", [1, 2])
+def test_host_match_classifier_matches_jax(dbs, seq_mode):
+    """min_cons_cnt=1 leaves the path DP's validity domain: every batch
+    takes the host-match flow."""
+    root, jdb, _, reads = dbs
+    paths = (reads,) if seq_mode == 1 else (os.path.join(root, "r1.fna"),
+                                            os.path.join(root, "r2.fna"))
+    ref, got, tclf = _both(jdb, dict(seq_mode=seq_mode, min_cons_cnt=1),
+                           *paths)
+    assert got == ref
+    assert sum(t[1] for t in got) >= 18
+    assert tclf.total_match_cnt > 0
+
+
+def test_cli_paired_outputs_byte_identical(dbs, capsys):
+    root, jdb, _, _ = dbs
+    r1, r2 = os.path.join(root, "r1.fna"), os.path.join(root, "r2.fna")
+    args = [r1, r2, jdb, None, "job", "--seq-mode", "2", "--min-score",
+            "0.15", "--batch-size", "8"]
+    jout, tout = os.path.join(root, "jout2"), os.path.join(root, "tout2")
+    assert jcli.main(["classify"] + [a or jout for a in args]
+                     + ["--devices", "1"]) == 0
+    assert tcli.main(["classify"] + [a or tout for a in args]
+                     + ["--device", "cpu"]) == 0
+    for name in ("job_classifications.tsv", "job_report.tsv"):
+        with open(os.path.join(jout, name), "rb") as f:
+            ref = f.read()
+        with open(os.path.join(tout, name), "rb") as f:
+            assert f.read() == ref, name
+        assert ref
+    # --seq-mode 2 with one file classifies it unpaired, as the JAX CLI does
+    args = [r1, jdb, None, "one", "--seq-mode", "2", "--batch-size", "8"]
+    assert jcli.main(["classify"] + [a or jout for a in args]
+                     + ["--devices", "1"]) == 0
+    assert tcli.main(["classify"] + [a or tout for a in args]
+                     + ["--device", "cpu"]) == 0
+    with open(os.path.join(jout, "one_classifications.tsv"), "rb") as f:
+        ref = f.read()
+    with open(os.path.join(tout, "one_classifications.tsv"), "rb") as f:
+        assert f.read() == ref
+
+
+def test_unported_configurations_raise(dbs, monkeypatch):
     _, jdb, _, _ = dbs
-    for kw in (dict(seq_mode=2), dict(min_cons_cnt=1), dict(em=True),
-               dict(hbm_budget_gb=1.0)):
+    for kw in (dict(em=True), dict(hbm_budget_gb=1.0)):
         p = ClassifyParams(**{**PARAMS, **kw})
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             Classifier(jdb, p, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Classifier(jdb, ClassifyParams(**PARAMS), mesh=object(), device="cpu")
+    monkeypatch.setenv("METABULI_DEVICE_ASSIGN", "1")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        Classifier(jdb, ClassifyParams(**PARAMS), device="cpu")
+    # the flows this test used to refuse now run
+    monkeypatch.delenv("METABULI_DEVICE_ASSIGN")
+    for kw in (dict(seq_mode=2), dict(seq_mode=3), dict(min_cons_cnt=1)):
+        Classifier(jdb, ClassifyParams(**{**PARAMS, **kw}), device="cpu")

@@ -26,6 +26,21 @@ EDGES = [
     ("W17-S2-kf1", 5, 18, 17, 2, 1, False, 8, 0.5),
     ("overflow-cap12", 12, 18, 16, 1, 2, False, 2, 0.9),
 ]
+# long rows, as --seq-mode 3 and paired batches give the kernels: W in the
+# thousands (3333 and 5461 end inside a window tile, 2400 does not), lanes
+# that overflow 16 emission slots and lanes that do not, the block
+# variant at a long W, and a pair of launches over the same lanes with
+# two different W (mate 1, mate 2).  Same fields as EDGES plus the
+# compact5 settings to run (long rows take the 7-column layout on the
+# main path; both layouts must hold at any W).
+LONG_W = [
+    ("W3333-S3-overflow", 8, 24, 3333, 3, 2, True, 16, 0.3, (True, False)),
+    ("W2400-S3-bw512", 8, 24, 2400, 3, 2, True, 512, 0.3, (False,)),
+    ("W5461-S1", 4, 12, 5461, 1, 2, False, 64, 0.4, (True, False)),
+    ("W2001-cap40-block", 40, 12, 2001, 3, 2, True, 32, 0.1, (False,)),
+    ("mate1-W36", 8, 1536, 36, 3, 2, True, 16, 0.5, (True,)),
+    ("mate2-W33", 8, 1536, 33, 3, 2, True, 16, 0.5, (True,)),
+]
 
 
 def random_case(rng, cap, G, W, n_species=5, density=0.4, dyn_gap=False):

@@ -79,3 +79,49 @@ def write_reads(path, reads):
     with open(path, "w") as f:
         for i, r in enumerate(reads):
             f.write(f">r{i}\n{r.tobytes().decode()}\n")
+
+
+def simulate_pairs(genomes, n, seed=1, read_len=150, insert=(280, 420),
+                   err=0.01):
+    """Paired reads: mate 1 is the head of a fragment, mate 2 the head of
+    its reverse complement; half the fragments come from the other strand.
+    Returns (mate1 [n, read_len], mate2 [n, read_len], source genome [n])."""
+    rng = np.random.default_rng(seed)
+    G = np.stack([np.frombuffer(g.encode(), dtype=np.uint8) for g in genomes])
+    gi = rng.integers(0, len(genomes), size=n)
+    ins = rng.integers(insert[0], insert[1] + 1, size=n)
+    starts = rng.integers(0, G.shape[1] - insert[1], size=n)
+    ar = np.arange(read_len)[None, :]
+    head = G[gi[:, None], starts[:, None] + ar]
+    tail = _COMP[G[gi[:, None], (starts + ins)[:, None] - 1 - ar]]
+    flip = rng.random(n) < 0.5
+    m1 = np.where(flip[:, None], tail, head)
+    m2 = np.where(flip[:, None], head, tail)
+    for m in (m1, m2):
+        e = rng.random(m.shape) < err
+        m[e] = ACGT[rng.integers(0, 4, size=int(e.sum()))]
+    return np.ascontiguousarray(m1), np.ascontiguousarray(m2), gi
+
+
+def simulate_long(genomes, lengths, seed=1, err=0.01, seg=1000):
+    """Long reads of the given lengths: each is `seg`-base stretches of
+    one genome laid end to end (the genomes are shorter than the reads),
+    with errors, half reverse-complemented.  Returns (list of uint8
+    arrays, source genome index per read)."""
+    rng = np.random.default_rng(seed)
+    G = np.stack([np.frombuffer(g.encode(), dtype=np.uint8) for g in genomes])
+    reads, src = [], []
+    for n in lengths:
+        g = int(rng.integers(0, len(genomes)))
+        parts = []
+        for _ in range(-(-n // seg)):
+            s = int(rng.integers(0, G.shape[1] - seg))
+            parts.append(G[g, s:s + seg])
+        r = np.concatenate(parts)[:n].copy()
+        e = rng.random(n) < err
+        r[e] = ACGT[rng.integers(0, 4, size=int(e.sum()))]
+        if rng.random() < 0.5:
+            r = _COMP[r[::-1]]
+        reads.append(np.ascontiguousarray(r))
+        src.append(g)
+    return reads, np.array(src)
