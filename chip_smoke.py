@@ -16,7 +16,7 @@
    two launches over the same lanes with different W); checks that each
    case went to the variant its cap selects;
 4. builds (or loads from ~/.cache) a syncmer DB of 8 genomes x 4 Mb in 2
-   genera and drives four paths on it through Classifier(device="cuda")
+   genera and drives seven paths on it through Classifier(device="cuda")
    and classify_file, each after a one-batch warm-up, each with the
    kernels' launch counts set to 0 just before and read just after:
    - single-end: 16,384 reads of 150 bp (1% errors, half reverse-
@@ -29,7 +29,21 @@
      run the 7-column path layout) and a 150-kb read (beyond the 64-kb
      row cap: redone from chunks through the host-match step);
    - host-match flow (min_cons_cnt 1): 4,096 of the single-end reads; no
-     path-DP kernel belongs to this flow and none may launch.
+     path-DP kernel belongs to this flow and none may launch;
+   - streamed single-end (hbm_budget_gb 0.25): the single-end reads with
+     the index kept on the host in >= 4 ranges and swept through the
+     device per group of batches; every read must equal the resident
+     single-end run's; prints the group size, sweeps, bytes uploaded and
+     the upload rate.  (A user's streamed database is larger than the
+     card; the smoke run streams its own under a small budget: mechanism
+     and batch shapes are the full ones, the index size is not.)  Then
+     one read a little beyond the 64-kb row cap through the streamed
+     classifier's chunk pass, held equal to the resident classifier's;
+   - device-assign flow (METABULI_DEVICE_ASSIGN=1), single-end and
+     paired: the same reads and pairs with species scoring and tie/LCA
+     assignment on the device; every batch must take the device-assign
+     dispatch, and every read must equal the host-scoring run's, tax_cnt
+     and top_species included.
    For every path it checks that the plain DP never ran on the card,
    that every launch at cap <= 32 went to the warp variant, that >= 95%
    of reads land on their source species or genus, and that a subset
@@ -80,6 +94,8 @@ N_LONG, LONG_LEN, LONG_BATCH = 256, 10_000, 32
 MID_LONG = (24_000, 36_000)      # rows >= 2^14 nt: the 7-column layout
 VERY_LONG = 150_000              # beyond the 64-kb row cap: chunked
 N_HOST_MATCH = 4096
+STREAM_GB = 0.25                 # budget that cuts the index into 4 ranges
+OVER_CAP = 66_000                # a little beyond the 64-kb row cap
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate
 ALU_OPS_PER_S = 67e12            # H100 SXM 32-bit non-tensor peak
 QUEUE_CYCLES = 50_000_000        # ~25 ms of device spin while the host
@@ -358,6 +374,38 @@ def tuples(results):
              float(q.result.score)) for q in results]
 
 
+def full_tuples(results):
+    """tuples() plus what the two scoring flows must also agree on."""
+    return [(q.result.is_classified, q.result.classification,
+             float(q.result.score), dict(q.result.tax_cnt),
+             int(q.result.top_species)) for q in results]
+
+
+def same_as(name, what, got, ref):
+    n_same = sum(a == b for a, b in zip(got, ref))
+    print(f"{name}: {n_same}/{len(ref)} reads identical to {what}")
+    assert len(got) == len(ref) and n_same == len(ref), \
+        f"{name}: results differ from {what}"
+
+
+def pin_device_assign(clf):
+    """Counts the batches that take the device-assign dispatch and fails
+    one that leaves it."""
+    n = {"full": 0}
+    full = clf._dispatch_batch_full
+
+    def counted(*a, **k):
+        n["full"] += 1
+        return full(*a, **k)
+
+    def refuse(*a, **k):
+        raise AssertionError("a batch left the device-assign flow")
+
+    clf._dispatch_batch_full = counted
+    clf._dispatch_batch_dp = refuse
+    return n
+
+
 def time_cuda(fn, reps, queue_ahead=False, warm=True):
     """Device ms per call of fn over `reps` calls between two events.
     queue_ahead keeps the device spinning while the host enqueues all the
@@ -420,6 +468,7 @@ def drive(dp_cuda, clf, run):
     clf.timer.counts.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     dp_cuda.path_dp_blocked = capture
     dp_cuda.launches = dp_cuda.warp_launches = 0
     dp_cuda.block_launches = dp_cuda.plain_cuda_calls = 0
@@ -434,7 +483,7 @@ def drive(dp_cuda, clf, run):
             "launches": dp_cuda.launches, "plain": dp_cuda.plain_cuda_calls,
             "counts": variant_counts(dp_cuda),
             "dispatches": clf.timer.counts["dispatch"],
-            "peak": torch.cuda.max_memory_allocated()}
+            "peak": torch.cuda.max_memory_allocated(), "base": base}
 
 
 def check_path(name, r, n_reads, src, dp_cuda, card, unit="reads"):
@@ -465,7 +514,9 @@ def check_path(name, r, n_reads, src, dp_cuda, card, unit="reads"):
     assert right >= 0.95, f"{name}: only {right:.4f} classified correctly"
     print(f"{name}: {n_reads / r['dt']:.1f} {unit}/s ({r['dt']:.3f} s for "
           f"{n_reads} {unit}); peak device memory "
-          f"{r['peak'] / 2**30:.3f} GiB; on {card}")
+          f"{r['peak'] / 2**30:.3f} GiB, {r['base'] / 2**30:.3f} GiB of it "
+          f"held before the run (index, kept launch inputs of earlier "
+          f"paths); on {card}")
 
 
 def cpu_check(name, gpu_results, cpu_results):
@@ -515,10 +566,11 @@ def time_shapes(name, r, dp_cuda, card, max_err, reps=50, plain_reps=3):
     return timed
 
 
-def profile_path(name, run, n_reads, card):
+def profile_path(name, run, n_reads, card, n_batches=None):
     """`run()` unprofiled, then under torch.profiler: the two walls, the
-    device busy time (sum of kernel and copy times), the idle share and
-    the ten kernels with the most device time."""
+    device busy time (sum of kernel and copy times), the idle share, the
+    device operations per batch and the ten kernels with the most device
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -551,9 +603,18 @@ def profile_path(name, run, n_reads, card):
           f"{dt:.3f} s; under the profiler wall {wall_p:.3f} s, device busy "
           f"{busy:.3f} s in {sum(r[1] for r in rows)} kernels and copies, "
           f"idle share {100 * (1 - busy / wall_p):.1f}%; busy / unprofiled "
-          f"wall {100 * busy / dt:.1f}%")
+          f"wall {100 * busy / dt:.1f}%"
+          + (f"; {sum(r[1] for r in rows) / n_batches:.0f} device "
+             f"operations a batch over {n_batches} batches"
+             if n_batches else ""))
     for us, count, key in rows[:10]:
         print(f"  {us / 1e3:9.3f} ms  {count:6d} x  {key[:90]}")
+    # int(tensor) and .item() end here: the host's waits for the device
+    waits = [e for e in prof.key_averages()
+             if e.key == "aten::_local_scalar_dense"]
+    print(f"{name} profile: host time inside waits for a device value "
+          f"(int(), .item()): {sum(e.cpu_time_total for e in waits) / 1e6:.3f}"
+          f" s in {sum(e.count for e in waits)} calls, under the profiler")
 
 
 def main(argv=()):
@@ -624,7 +685,7 @@ def main(argv=()):
         if profiled:
             profile_path("single-end",
                          lambda: clf.classify_file(fa("reads.fna")),
-                         N_READS, card)
+                         N_READS, card, N_READS // BATCH)
         clf = None
         torch.cuda.empty_cache()
 
@@ -651,7 +712,8 @@ def main(argv=()):
                   cpu.classify_file(fa("cpu_1.fna"), fa("cpu_2.fna")))
         if profiled:
             profile_path("paired", lambda: clf.classify_file(
-                fa("pairs_1.fna"), fa("pairs_2.fna")), N_PAIRS, card)
+                fa("pairs_1.fna"), fa("pairs_2.fna")), N_PAIRS, card,
+                N_PAIRS // BATCH)
         clf = None
         torch.cuda.empty_cache()
 
@@ -759,6 +821,150 @@ def main(argv=()):
                          N_HOST_MATCH, card)
         clf = None
         torch.cuda.empty_cache()
+
+        # ------------------------------------------------ streamed single-end
+        se = runs["single-end"]
+        t0 = time.perf_counter()
+        clf = classifier(seq_mode=1, batch_size=BATCH,
+                         hbm_budget_gb=STREAM_GB, **short)
+        rs = clf._ranges
+        assert clf._streaming and clf._n_ranges >= 4, \
+            f"streamed: {clf._n_ranges} ranges under {STREAM_GB} GiB"
+        assert not hasattr(clf, "db_quad")
+        print(f"streamed: setup (shard + hash) {time.perf_counter() - t0:.1f} "
+              f"s; {clf._n_ranges} ranges of {rs.range_bytes / 1e6:.1f} MB "
+              f"(rows {rs.quads[0].numel() * 4 / 1e6:.1f} MB + hash "
+              f"{rs.hts[0].numel() * 4 / 1e6:.1f} MB, chain "
+              f"{clf.hash_chain}) under a budget of {STREAM_GB} GiB; group "
+              f"size {clf._stream_group_size()} batches; device memory "
+              f"after setup {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+        clf.classify_file(fa("warm.fna"))
+        up0 = rs.stats()
+        r = runs["streamed"] = drive(
+            dp_cuda, clf, lambda: clf.classify_file(fa("reads.fna")))
+        up1 = rs.stats()
+        assert r["launches"] > 0, \
+            "the streamed path never launched the path-DP kernel"
+        assert clf._match_state is None, \
+            "the streamed path uploaded the host-match arrays"
+        check_path("streamed", r, N_READS, src, dp_cuda, card)
+        same_as("streamed", "the resident single-end run",
+                tuples(r["results"]), tuples(se["results"]))
+        sweeps = up1["sweeps"] - up0["sweeps"]
+        up_b = up1["bytes"] - up0["bytes"]
+        up_s = up1["copy_s"] - up0["copy_s"]
+        assert sweeps >= 2 and up_b == sweeps * clf._n_ranges * rs.range_bytes
+        print(f"streamed: {sweeps} sweeps of {clf._n_ranges} ranges for "
+              f"{N_READS // BATCH} batches ({clf.timer.counts['retry']} "
+              f"single-batch retry sweeps among them), {up_b / 1e6:.1f} MB "
+              f"uploaded in {up_s:.3f} s of copies = {up_b / up_s / 1e9:.2f} "
+              f"GB/s from pinned staging; peak device memory above "
+              f"what was held before the run "
+              f"{(r['peak'] - r['base']) / 2**30:.3f} GiB against the "
+              f"budget's {STREAM_GB} GiB (resident run "
+              f"{(se['peak'] - se['base']) / 2**30:.3f} GiB above its index "
+              f"and hash table); "
+              f"{N_READS / r['dt']:.1f} reads/s against the resident run's "
+              f"{N_READS / se['dt']:.1f}; on {card}")
+        stage_table("streamed", clf, card)
+        cpu = classifier("cpu", seq_mode=1, batch_size=N_CPU_CHECK,
+                         hbm_budget_gb=STREAM_GB, **short)
+        assert cpu._streaming
+        cpu_check("streamed", r["results"][:N_CPU_CHECK],
+                  cpu.classify_file(fa("cpu.fna")))
+        if profiled:
+            profile_path("streamed",
+                         lambda: clf.classify_file(fa("reads.fna")),
+                         N_READS, card, N_READS // BATCH)
+        clf = cpu = rs = None
+        torch.cuda.empty_cache()
+
+        # ------------------------- a streamed read beyond the row cap
+        one, g_over = simulate_reads(G, np.random.default_rng(4), 1,
+                                     OVER_CAP)
+        seq = one[0].tobytes().decode()
+        over = {}
+        for name, kw in (("resident", {}),
+                         ("streamed", {"hbm_budget_gb": STREAM_GB})):
+            clf = classifier(batch_size=LONG_BATCH, **long_kw, **kw)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            q = clf._classify_long_read("over_cap", seq)
+            over[name] = (q, time.perf_counter() - t0, dict(clf.timer.totals),
+                          torch.cuda.max_memory_allocated(),
+                          clf._match_state is not None,
+                          clf._ranges.stats() if clf._streaming else None)
+            clf = None
+            torch.cuda.empty_cache()
+        q_r, q_s = over["resident"][0], over["streamed"][0]
+        assert over["resident"][4] and not over["streamed"][4], \
+            "streamed over-cap read: the host-match arrays were uploaded"
+        assert q_s.length1 == OVER_CAP and q_s.result.is_classified
+        assert q_s.result.classification in (4 + int(g_over[0]),
+                                             2 + int(g_over[0]) % 2)
+        same_as("streamed over-cap read", "the resident classifier's chunk "
+                "pass", full_tuples([q_s]), full_tuples([q_r]))
+        for name, (q, dt, tot, peak, _, up) in over.items():
+            print(f"over-cap read ({OVER_CAP} bases), {name}: {dt:.3f} s "
+                  f"(probe {tot['long_probe']:.3f} s, host scoring "
+                  f"{tot['long_score']:.3f} s), peak device memory "
+                  f"{peak / 2**30:.3f} GiB"
+                  + (f", {up['sweeps']} sweeps, {up['bytes'] / 1e6:.1f} MB "
+                     f"uploaded" if up else "") + f"; on {card}")
+
+        # ------------------------------------------------ device-assign flow
+        for name, mode, files, cpu_files, warm, ref, n, unit, s_ in (
+                ("device-assign single-end", 1, (fa("reads.fna"),),
+                 (fa("cpu.fna"),), (fa("warm.fna"),), runs["single-end"],
+                 N_READS, "reads", src),
+                ("device-assign paired", 2,
+                 (fa("pairs_1.fna"), fa("pairs_2.fna")),
+                 (fa("cpu_1.fna"), fa("cpu_2.fna")),
+                 (fa("warm_1.fna"), fa("warm_2.fna")), runs["paired"],
+                 N_PAIRS, "pairs", src2)):
+            # the flow is pinned by the environment when a classifier is made
+            os.environ["METABULI_DEVICE_ASSIGN"] = "1"
+            try:
+                clf = classifier(seq_mode=mode, batch_size=BATCH, **short)
+                cpu = classifier("cpu", seq_mode=mode,
+                                 batch_size=N_CPU_CHECK, **short)
+            finally:
+                del os.environ["METABULI_DEVICE_ASSIGN"]
+            assert clf._device_assign and cpu._device_assign
+            took = pin_device_assign(clf)
+            clf.classify_file(*warm)
+            warm_retries = dict(clf.full_retries)
+            clf.full_retries.clear()
+            took["full"] = 0
+            r = runs[name] = drive(dp_cuda, clf,
+                                   lambda: clf.classify_file(*files))
+            per_batch = len(files)           # one launch per mate
+            assert took["full"] == r["dispatches"] >= n // BATCH
+            assert r["launches"] == per_batch * r["dispatches"] > 0, \
+                f"{name}: {r['launches']} launches for {r['dispatches']} " \
+                f"dispatched batches"
+            check_path(name, r, n, s_, dp_cuda, card, unit=unit)
+            same_as(name, "the host-scoring run (tax_cnt and top_species "
+                    "included)", full_tuples(r["results"]),
+                    full_tuples(ref["results"]))
+            print(f"{name}: {n / r['dt']:.1f} {unit}/s against the "
+                  f"host-scoring flow's {n / ref['dt']:.1f} in this run; "
+                  f"retries by rung {clf.full_retries} (warm-up batch "
+                  f"{warm_retries}); combine_k settled at {clf._combine_k}, "
+                  f"cap {clf.cap}; on {card}")
+            stage_table(name, clf, card)
+            got_cpu = cpu.classify_file(*cpu_files)
+            cpu_check(name, r["results"][:N_CPU_CHECK], got_cpu)
+            same_as(name + " CPU check", "the CPU run (tax_cnt and "
+                    "top_species included)",
+                    full_tuples(r["results"][:N_CPU_CHECK]),
+                    full_tuples(got_cpu))
+            if profiled:
+                profile_path(name, lambda: clf.classify_file(*files), n,
+                             card, n // BATCH)
+            clf = cpu = None
+            torch.cuda.empty_cache()
 
     # ------------------------------- main-path parity and kernel timings
     # the plain version runs once per long-read shape (seconds a call)

@@ -5,7 +5,7 @@ Mirrors Classifier::startClassify (reference src/commons/Classifier.cpp:
 44-164) with the stage boundaries moved to host<->device transfers:
 
   host:   FASTA/FASTQ decode -> padded uint8 batches
-  device: 6-frame metamer extraction, resident-index probe, path DP
+  device: 6-frame metamer extraction, index probe, path DP
           (models/flagship.fused_step_dp)
   host:   species scoring from the emitted paths (classify/taxonomer_vec)
   device: best-species redundancy filter (flagship.redundancy_counts)
@@ -28,8 +28,18 @@ mate 2 as a second part.  Long reads (--seq-mode 3) ride the same
 batches up to LONG_ROW_CAP bases; longer ones are redone whole from
 overlapping chunks through the host-match step (_classify_long_read).
 
-Only a resident index on a single device is handled; DB-range
-streaming, several devices, the device-assign flow and --em raise
+With a device-memory budget (--hbm-gb) smaller than twice the packed
+index, the index stays on the host, cut into ranges at AA boundaries,
+and every GROUP of batches sweeps the ranges through the device
+(_dispatch_group_stream, _drive_batches_stream); a read beyond the row
+cap then probes the same ranges (_stream_probe_matches).
+
+METABULI_DEVICE_ASSIGN=1 selects the device-assign flow on a resident
+index: species scoring and tie/LCA assignment run on the device too
+(flagship.fused_step_full), and the host decodes one [6, B+1] record
+table per batch (_dispatch_batch_full, _finish_full_phase1).
+
+Only a single device is handled; several devices and --em raise
 NotImplementedError naming the ROADMAP.md item that brings them.
 """
 
@@ -45,7 +55,8 @@ import torch
 from ..device import resolve_device
 from ..index.format import KmerIndex, load_index
 from ..index.packing import (load_or_pack_wide, match_state_from_numpy,
-                             state_from_numpy)
+                             pack_db_quad, shard_quad_index,
+                             state_from_numpy, stream_state_from_numpy)
 from ..io.fasta import read_seq_file
 from ..ops import compact_torch
 from ..ops import mask as mask_ops
@@ -154,6 +165,68 @@ class _HostCopy:
         return self.host.numpy()
 
 
+class _RangeStream:
+    """The host-resident ranges of a streamed index and their way to the
+    device.  Ranges are pageable host memory (pinning them all would
+    double the host memory of a database that already needs streaming);
+    a range is copied into one of two pinned staging buffers of one
+    range's size and goes to the device from there without blocking, an
+    event guarding each staging buffer until its copy has landed.  On
+    the CPU a range is used where it lies."""
+
+    def __init__(self, quads, hts, device):
+        self.quads, self.hts = quads, hts        # int32 [n, rows, 128]
+        self.device = device
+        self.range_bytes = (quads[0].numel() + hts[0].numel()) * 4
+        self.sweeps = 0             # counted by the callers, one per sweep
+        self.bytes_uploaded = 0
+        self.copy_ms = 0.0          # device time of the settled uploads
+        self._stage = self._pending = None
+        if device.type == "cuda":
+            self._stage = [tuple(torch.empty(a.shape[1:], dtype=a.dtype,
+                                             pin_memory=True)
+                                 for a in (quads, hts)) for _ in range(2)]
+            self._pending = [None, None]
+
+    def _settle(self, s):
+        """Wait until staging buffer `s` has been read by its copy."""
+        if self._pending[s] is not None:
+            t0, t1 = self._pending[s]
+            t1.synchronize()
+            self.copy_ms += t0.elapsed_time(t1)
+            self._pending[s] = None
+
+    def upload(self, r):
+        """(quad_r, hash_r) of range r on the device.  The caller drops
+        both before it asks for the next range: all ranges have one
+        shape, so the allocator hands the same block out again and one
+        range at a time lives on the device."""
+        if self._stage is None:
+            return self.quads[r], self.hts[r]
+        s = r % 2
+        self._settle(s)
+        stage = self._stage[s]
+        stage[0].copy_(self.quads[r])
+        stage[1].copy_(self.hts[r])
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = tuple(a.to(self.device, non_blocking=True) for a in stage)
+        t1.record()
+        self._pending[s] = (t0, t1)
+        self.bytes_uploaded += self.range_bytes
+        return out
+
+    def stats(self):
+        """Sweeps, bytes uploaded and the device seconds their copies
+        took, so far (waits for the copies in flight)."""
+        if self._stage is not None:
+            for s in range(2):
+                self._settle(s)
+        return {"sweeps": self.sweeps, "bytes": self.bytes_uploaded,
+                "copy_s": self.copy_ms / 1e3}
+
+
 class Classifier:
     def __init__(self, db_dir, params: ClassifyParams, mesh=None,
                  device=None):
@@ -172,22 +245,22 @@ class Classifier:
 
     def _init_from_index(self, index: KmerIndex, params: ClassifyParams,
                          mesh=None, device=None):
-        if params.hbm_budget_gb:
-            raise _not_ported("DB-range streaming (hbm_budget_gb)",
-                              "Queue 1 item 10")
         if mesh is not None:
             raise _not_ported("multi-device classify", "Queue 1 item 11")
         if params.em:
             raise _not_ported("--em", "Queue 1 item 13")
-        # the reference package pins its device-assign flow with this
-        # variable; a run that asks for it is told, not silently served
-        # the host-scoring flow
-        if os.environ.get("METABULI_DEVICE_ASSIGN") == "1":
-            raise _not_ported("the device-assign flow "
-                              "(METABULI_DEVICE_ASSIGN=1)", "Queue 1 item 8")
         self.device = resolve_device(device)
         self.params = params
         self.index = index
+        # DB-range streaming: when the packed index (16 B per metamer)
+        # takes more than half the device-memory budget, keep it on the
+        # host and probe it in range passes
+        budget_gb = float(params.hbm_budget_gb or 0) \
+            or float(os.environ.get("METABULI_HBM_GB", "0") or 0)
+        self._hbm_budget_gb = budget_gb
+        self._shard_bytes = len(index.values) * 16
+        self._streaming = (budget_gb > 0 and self._shard_bytes
+                           > budget_gb * (1 << 30) * 0.5)
         self.taxonomy = index.taxonomy
         meta = index.meta
         self.kmer_format = int(meta.get("kmer_format", 2))
@@ -219,6 +292,7 @@ class Classifier:
         self.total_match_cnt = 0
         self.timer = StageTimer()
         self._match_state = None        # host-match arrays, at first use
+        self.full_retries = {}          # device-assign retries by rung
         self._fetch_estimate = 1 << 17  # match rows fetched eagerly
         self._path_estimate = 1 << 14   # emitted-path rows fetched eagerly
         # redundancy pair prefix compacted on the device (sticky pow2;
@@ -238,13 +312,28 @@ class Classifier:
         self._init_device_dp()
 
     def _init_device_dp(self):
-        """Resident single-device index + LCA tables on self.device, for
-        the path-DP flow: valid when minConsCnt >= 2 (see ops/dp_torch);
-        below that every batch takes the host-match flow and the wide
-        index is never packed."""
+        """Index (resident on self.device, or host ranges when streaming)
+        + LCA tables on self.device, for the path-DP flow: valid when
+        minConsCnt >= 2 (see ops/dp_torch); below that every batch takes
+        the host-match flow and the wide index is never packed."""
         p = self.params
         self.use_device_dp = p.min_cons_cnt >= 2 and p.min_cons_cnt_euk >= 2
+        # device-assign flow: score species + pick classifications on
+        # the device so only [6, B+1] records come home.  Off unless
+        # pinned: it adds operators to enqueue, and the host enqueue is
+        # what bounds a batch (PERF.md section 5).  Streaming keeps the
+        # host-scoring flow.
+        self._device_assign = (
+            os.environ.get("METABULI_DEVICE_ASSIGN") == "1"
+            and self.use_device_dp and not self._streaming)
+        # paths of one (read, species) run the device-assign step
+        # combines; a longer run triggers a sticky doubled re-run
+        self._combine_k = 8
         if not self.use_device_dp:
+            if self._streaming:
+                raise ValueError(
+                    "DB-range streaming requires min_cons_cnt >= 2 "
+                    "(the device path-DP flow)")
             return
         n = self.taxonomy.num_nodes()
         euk = self.taxonomy.eukaryota_id()
@@ -263,6 +352,24 @@ class Classifier:
         assert len(self.taxonomy.euler) < (1 << 25), \
             "taxonomy too large for packed-key redundancy kernel"
         db_ef = ef[self.index.taxids.astype(np.int64)].astype(np.int32)
+        if self._streaming:
+            # the index stays on the HOST, cut into AA-boundary ranges of
+            # at most half the budget; classify loops range passes per
+            # group of batches
+            budget = self._hbm_budget_gb * (1 << 30) * 0.5
+            n_ranges = max(2, int(np.ceil(self._shard_bytes / budget)))
+            quads, hts, log2_rows, chain, _ = shard_quad_index(
+                pack_db_quad(self.index.values, db_ef, sp_euk), n_ranges)
+            st = stream_state_from_numpy(
+                quads, hts, log2_rows, chain, depth, lift,
+                self.taxonomy.euler.astype(np.int32), ef.astype(np.int32),
+                self.device)
+            self._ranges = _RangeStream(st.pop("stream_quads"),
+                                        st.pop("stream_hts"), self.device)
+            self._n_ranges = n_ranges
+            for k, v in st.items():
+                setattr(self, k, v)
+            return
         # 512-byte rows + a one-row-chain hash up to a 3 GiB table
         rows, ht, log2_rows, chain, db_m = load_or_pack_wide(
             self.index.values, db_ef, sp_euk, max_chain=1,
@@ -295,14 +402,24 @@ class Classifier:
         it2 = read_seq_file(path2) if path2 else None
         B = self.params.batch_size
         names, s1, s2 = [], [], []
+        n_seen = 0
         for rec1 in it1:
-            rec2 = next(it2) if it2 else None
+            rec2 = next(it2, None) if it2 else None
+            if it2 and rec2 is None:
+                raise ValueError(
+                    f"paired read files differ in length: {path2} ends "
+                    f"after {n_seen} reads, {path1} has more")
+            n_seen += 1
             names.append(rec1.name)
             s1.append(rec1.seq)
             s2.append(rec2.seq if rec2 else None)
             if len(names) == B:
                 yield names, s1, s2
                 names, s1, s2 = [], [], []
+        if it2 and next(it2, None) is not None:
+            raise ValueError(
+                f"paired read files differ in length: {path1} ends after "
+                f"{n_seen} reads, {path2} has more")
         if names:
             yield names, s1, s2
 
@@ -353,11 +470,32 @@ class Classifier:
     # -- async halves: dispatch launches device work, finish pulls + scores
     def _dispatch_batch(self, names, a1, l1, a2=None, l2=None, cap=None):
         if self.use_device_dp:
+            if self._device_assign and self._fits_compact5(a1, l1, a2, l2):
+                return self._dispatch_batch_full(names, a1, l1, a2, l2, cap)
             return self._dispatch_batch_dp(names, a1, l1, a2, l2, cap)
         return self._dispatch_batch_host(names, a1, l1, a2, l2, cap)
 
+    @staticmethod
+    def _fits_compact5(a1, l1, a2, l2):
+        """The device-assign step reads the 5-column path layout only; a
+        batch with rows too long for it (long reads beyond 16 kb) takes
+        the host-scoring flow, which gives the same results."""
+        from ..models.flagship import compact5_fits
+
+        def lmax(a, l):
+            n = int(np.minimum(np.asarray(l), a.shape[1]).max(initial=1))
+            return _bucket_len(n)
+
+        return compact5_fits(len(l1), lmax(a1, l1),
+                             lmax(a2, l2) if a2 is not None else None)
+
     def _dispatch_batch_dp(self, names, a1, l1, a2=None, l2=None, cap=None,
                            path_width=None, win_frac=None, path_block=None):
+        if self._streaming:
+            # every retry of the ladder re-runs as a single-batch sweep
+            return self._dispatch_group_stream(
+                [(names, a1, l1, a2, l2)], cap=cap, path_width=path_width,
+                win_frac=win_frac, path_block=path_block)[0]
         from ..models.flagship import fused_step_dp, part_widths
 
         B = len(names)
@@ -380,19 +518,248 @@ class Classifier:
                 path_block=path_block, hash_table=self.hash_table,
                 hash_log2_rows=self.hash_log2_rows,
                 hash_chain=self.hash_chain, db_m=self.db_m)
-            # column 0 is the stats header; one async copy carries both
-            # the stats and the estimated path prefix home
-            est = min(self._path_estimate, packed_hdr.shape[1] - 1)
-            prefix = _HostCopy(packed_hdr[:, :est + 1])
             lmax2 = r2.shape[1] if r2 is not None else None
-            lmax = r1.shape[1] + (lmax2 + 3 if r2 is not None else 0)
-            n_quot = lmax // int(self.taxonomer.dna_shift) + 2
             part_w = part_widths(r1.shape[1], self.syncmer, self.kmer_format,
                                  self.smer_len, win_frac, lmax2=lmax2)
-        return {"dp": True, "names": names, "l1": l1, "l2": l2_c, "cap": cap,
+            return self._dp_ctx(names, a1, a2, l1, l2_c, cap, packed_hdr,
+                                resident, r1.shape[1], lmax2, part_w)
+
+    def _dp_ctx(self, names, a1, a2, l1, l2, cap, packed_hdr, resident,
+                lmax1, lmax2, part_w):
+        """What _finish_dp_phase1 needs of a dispatched batch; starts the
+        copy that carries the stats header (column 0) and the estimated
+        path prefix home together."""
+        est = min(self._path_estimate, packed_hdr.shape[1] - 1)
+        prefix = _HostCopy(packed_hdr[:, :est + 1])
+        lmax = lmax1 + (lmax2 + 3 if lmax2 is not None else 0)
+        n_quot = lmax // int(self.taxonomer.dna_shift) + 2
+        return {"dp": True, "names": names, "l1": l1, "l2": l2, "cap": cap,
                 "a1": a1, "a2": a2,
                 "paths": packed_hdr, "prefix": prefix, "est": est,
                 "resident": resident, "n_quot": n_quot, "part_w": part_w}
+
+    # ------------------------------------------------------------------ #
+    # DB-range streaming
+    def _dispatch_group_stream(self, group, cap=None, path_width=None,
+                               win_frac=None, path_block=None):
+        """DB-range streaming dispatch over a GROUP of read batches.
+
+        Extract every batch once, then loop range passes: each host
+        range is uploaded ONCE per sweep and probed against ALL batches
+        before it is dropped — the dominant cost (re-uploading the
+        index) is divided by len(group).  The device holds one range +
+        len(group) accumulator sets.  Returns one ctx per batch with the
+        same contract as _dispatch_batch_dp, so the two-phase finish and
+        all overflow-retry protocols apply unchanged (retries re-run
+        single-batch).
+
+        Reference analog: the --max-ram query-split x DB-stream loop
+        (QueryIndexer.cpp:24-147, DeltaIdxReader.h:214-229) with the
+        roles flipped — queries stay resident, the index streams."""
+        from ..models.flagship import (compact5_fits, extract_queries_step,
+                                       finish_stream_step, new_accumulators,
+                                       part_widths, probe_range_step)
+
+        cap = cap or self.cap
+        path_width = path_width or self._path_width
+        win_frac = win_frac or self._win_frac
+        path_block = path_block or self._path_block
+        ex_kw = dict(syncmer=self.syncmer, smer_len=self.smer_len,
+                     kmer_format=self.kmer_format, win_frac=win_frac)
+        with self.timer.stage("dispatch"):
+            per = []
+            for names, a1, l1, a2, l2 in group:
+                B = len(names)
+                r1, j1, ra1, l1 = self._prep_arrays(a1, l1, B)
+                r2 = j2 = ra2 = l2_c = None
+                if a2 is not None:
+                    r2, j2, ra2, l2_c = self._prep_arrays(a2, l2, B)
+                qk, qp, qf, qs, qv, shapes, win_over = extract_queries_step(
+                    r1, j1, r2, j2, ra1, ra2, **ex_kw)
+                per.append(dict(
+                    names=names, a1=a1, a2=a2, l1=l1, l2=l2_c, B=B,
+                    lm1=r1.shape[1],
+                    lm2=r2.shape[1] if r2 is not None else None,
+                    qk=qk, qp=qp, qf=qf, qs=qs, qv=qv, shapes=shapes,
+                    win_over=win_over,
+                    acc=new_accumulators(cap, qk.shape[0], self.device)))
+            self._ranges.sweeps += 1
+            for r in range(self._n_ranges):
+                with self.timer.stage("upload"):
+                    quad_r, hash_r = self._ranges.upload(r)
+                for p in per:
+                    probe_range_step(
+                        p["qk"], p["qf"], p["qv"], quad_r, hash_r, p["acc"],
+                        cap=cap, kmer_format=self.kmer_format,
+                        hash_log2_rows=self.hash_log2_rows,
+                        hash_chain=self.hash_chain)
+                del quad_r, hash_r      # one range at a time on the device
+
+            ctxs = []
+            for p in per:
+                packed_hdr, resident = finish_stream_step(
+                    p["acc"], p["qp"], p["qs"], p["shapes"], p["win_over"],
+                    min_cons=int(self.params.min_cons_cnt),
+                    min_cons_euk=int(self.params.min_cons_cnt_euk),
+                    cap=cap, path_width=path_width, path_block=path_block,
+                    compact5=compact5_fits(p["B"], p["lm1"], p["lm2"]),
+                    **ex_kw)
+                part_w = part_widths(p["lm1"], self.syncmer,
+                                     self.kmer_format, self.smer_len,
+                                     win_frac, lmax2=p["lm2"])
+                ctxs.append(self._dp_ctx(
+                    p["names"], p["a1"], p["a2"], p["l1"], p["l2"], cap,
+                    packed_hdr, resident, p["lm1"], p["lm2"], part_w))
+        return ctxs
+
+    def _stream_group_size(self) -> int:
+        """Batches per streaming range sweep: bounded by the device
+        memory left after one resident range.  Each flat query slot of a
+        batch holds 21 B of query tensors (int64 metamer, int32 position,
+        frame and read id, bool valid) and cap x 21 B of accumulators
+        (bool sel + five int32 fields).  Results do not depend on the
+        group size.  METABULI_STREAM_GROUP overrides."""
+        env = os.environ.get("METABULI_STREAM_GROUP")
+        if env:
+            return max(1, int(env))
+        from ..models.flagship import part_widths
+
+        budget = self._hbm_budget_gb * (1 << 30)
+        # the range occupies <= budget/2; size the accumulators into the
+        # remainder with a margin (N estimated from batch_size at 150 bp
+        # single-end; long or paired batches are simply a smaller
+        # effective group — the estimate only sets the default)
+        part_w = part_widths(168, self.syncmer, self.kmer_format,
+                             self.smer_len, self._win_frac)
+        n_est = sum(part_w) * self.params.batch_size
+        per_batch = n_est * (self.cap * 21 + 21)
+        spare = max(budget * 0.3, 256 << 20)
+        return int(min(16, max(1, spare // max(per_batch, 1))))
+
+    # ------------------------------------------------------------------ #
+    # device-assign flow (fused step + species assign + redundancy in one
+    # device chain; the host only decodes per-read records)
+    def _dispatch_batch_full(self, names, a1, l1, a2=None, l2=None, cap=None,
+                             win_frac=None):
+        from ..models.flagship import fused_step_full, part_widths
+
+        B = len(names)
+        cap = cap or self.cap
+        win_frac = win_frac or self._win_frac
+        path_width, path_block = self._path_width, self._path_block
+        combine_k = self._combine_k
+        with self.timer.stage("dispatch"):
+            r1, j1, ra1, l1 = self._prep_arrays(a1, l1, B)
+            r2 = j2 = ra2 = l2_c = lmax2 = None
+            if a2 is not None:
+                r2, j2, ra2, l2_c = self._prep_arrays(a2, l2, B)
+                lmax2 = r2.shape[1]
+            lmax = r1.shape[1] + (lmax2 + 3 if a2 is not None else 0)
+            records, packed2 = fused_step_full(
+                r1, j1, self.db_quad, self.ef_node, self.euler,
+                self.lca_depth, self.lca_lift, reads2=r2, lens2=j2,
+                ra1=ra1, ra2=ra2,
+                min_score=float(self.params.min_score),
+                tie_ratio=float(self.params.tie_ratio),
+                combine_k=combine_k,
+                dna_shift=int(self.taxonomer.dna_shift),
+                n_quot=lmax // int(self.taxonomer.dna_shift) + 2,
+                part_w=part_widths(r1.shape[1], self.syncmer,
+                                   self.kmer_format, self.smer_len, win_frac,
+                                   lmax2=lmax2),
+                min_cons=int(self.params.min_cons_cnt),
+                min_cons_euk=int(self.params.min_cons_cnt_euk),
+                cap=cap, kmer_format=self.kmer_format,
+                syncmer=self.syncmer, smer_len=self.smer_len,
+                path_width=path_width, win_frac=win_frac,
+                path_block=path_block, hash_table=self.hash_table,
+                hash_log2_rows=self.hash_log2_rows,
+                hash_chain=self.hash_chain, db_m=self.db_m)
+            return {"full": True, "names": names, "l1": l1, "l2": l2_c,
+                    "cap": cap, "a1": a1, "a2": a2, "path_width": path_width,
+                    "path_block": path_block, "combine_k": combine_k,
+                    "records": _HostCopy(records),
+                    "pairs": _HostCopy(packed2)}
+
+    def _finish_full_phase1(self, ctx):
+        """Fetch + decode the per-read record table; run the overflow
+        retry ladder (the host-scoring flow's four rungs, then the
+        combine_k run overflow).  The emission block and combine_k
+        double from the value the overflowing dispatch ran with: the
+        batches already in the pipeline were dispatched with the same
+        stale value, and doubling the sticky knob once per such batch
+        would square the combine step's work for nothing."""
+        with self.timer.stage("hdr_sync"):
+            rec = ctx["records"].numpy()         # ONE blocking fetch
+            st = rec[:5, 0]
+        # recheck-all retry ladder carrying effective knobs (see
+        # _finish_dp_phase1 for the rationale)
+        eff_wf = None
+        eff_cap = ctx["cap"]
+        while True:
+            if int(st[2]) > 0:                   # window compaction
+                self._win_frac = min(self._win_frac + 24, 256)
+                eff_wf = 256
+                rung = "window"
+            elif int(st[0]) > 0 and eff_cap < self._cap_ceiling:
+                eff_cap = min(eff_cap * 2, self._cap_ceiling)
+                self.cap = max(self.cap, eff_cap)
+                rung = "cap"
+            elif int(st[3]) > 0:                 # blocked-emission lanes
+                self._path_block = max(self._path_block,
+                                       ctx["path_block"] * 2)
+                rung = "block"
+            elif int(st[1]) > ctx["path_width"]:  # path compaction width
+                self._path_width = max(self._path_width,
+                                       ctx["path_width"]) * 2
+                rung = "width"
+            elif int(st[4]) > 0:                 # combine_k run overflow
+                self._combine_k = max(self._combine_k, ctx["combine_k"] * 2)
+                rung = "combine_k"
+            else:
+                break
+            self.full_retries[rung] = self.full_retries.get(rung, 0) + 1
+            with self.timer.stage("retry"):
+                ctx = self._dispatch_batch_full(
+                    ctx["names"], ctx["a1"], ctx["l1"], ctx["a2"], ctx["l2"],
+                    cap=eff_cap, win_frac=eff_wf)
+                rec = ctx["records"].numpy()
+                st = rec[:5, 0]
+
+        self._update_path_width(int(st[1]))
+        names = ctx["names"]
+        B = len(names)
+        lens1, lens2, qlens = self._query_lengths(ctx["l1"], ctx["l2"], B)
+        with self.timer.stage("score"):
+            live, tie = rec[0, 1:], rec[1, 1:]
+            tot = np.ascontiguousarray(rec[2, 1:]).view(np.float32)
+            lca, ft, top = rec[3, 1:], rec[4, 1:], rec[5, 1:]
+            ms = float(self.params.min_score)    # f64 compare, like the
+            results = [ReadResult() for _ in range(B)]  # host-scoring flow
+            deferred = []
+            for i in np.nonzero(live)[0]:
+                res = results[i]
+                res.species_scores = ()
+                res.top_species = int(top[i])
+                if tie[i] > 1:
+                    sc_avg = tot[i] / np.float32(int(tie[i]))
+                    res.score = float(sc_avg)
+                    if sc_avg == 0 or sc_avg < ms:
+                        continue
+                    res.is_classified = True
+                    res.classification = int(lca[i])
+                    continue
+                score = tot[i]
+                if score == 0 or score < ms:
+                    res.score = float(score)
+                    continue
+                deferred.append((int(i + 1), int(qlens[i + 1]), score,
+                                 int(ft[i])))
+        # the pairs came at full width: phase 2 never needs a re-run
+        return {"names": names, "lens1": lens1, "lens2": lens2,
+                "results": results, "deferred": deferred, "qlens": qlens,
+                "prefix2": ctx["pairs"],
+                "est2": ctx["pairs"].host.shape[1] - 1}
 
     def _finish_dp_phase1(self, ctx):
         """Fetch emitted paths, score species, enqueue the redundancy step
@@ -626,6 +993,9 @@ class Classifier:
     def _finish_partial(self, ctx):
         """Phase-1 finish for the pipeline (host-match flow: the whole
         finish, it has no second device step to wait for)."""
+        if ctx.get("full"):
+            # phase 2 is the host-scoring flow's pair decode + finish
+            return {"dp2": True, "ctx": self._finish_full_phase1(ctx)}
         if ctx.get("dp"):
             return {"dp2": True, "ctx": self._finish_dp_phase1(ctx)}
         return {"dp2": False, "results": self._finish_batch_host(ctx)}
@@ -702,16 +1072,22 @@ class Classifier:
             arr = np.full((B, lmax), ord("N"), np.uint8)
             for i, a in enumerate(grp):
                 arr[i, :lens[i]] = data[a:a + lens[i]]
-            r1, j1 = self._up(arr), self._up(lens)
-            while True:
-                packed, count, overflow = self._fused_step_host(
-                    r1, j1, None, None, cap)
-                if int(overflow) == 0 or cap >= self._cap_ceiling:
-                    break
-                cap = min(cap * 2, self._cap_ceiling)
-                self.cap = max(self.cap, cap)
-            m = compact_torch.decode_matches(
-                compact_torch.fetch_compacted((packed, count)), MATCH_DTYPE)
+            if self._streaming:
+                # probe the host-resident index ranges (one range on the
+                # device at a time); the host-match arrays stay unbuilt
+                m = self._stream_probe_matches(arr, lens)
+            else:
+                r1, j1 = self._up(arr), self._up(lens)
+                while True:
+                    packed, count, overflow = self._fused_step_host(
+                        r1, j1, None, None, cap)
+                    if int(overflow) == 0 or cap >= self._cap_ceiling:
+                        break
+                    cap = min(cap * 2, self._cap_ceiling)
+                    self.cap = max(self.cap, cap)
+                m = compact_torch.decode_matches(
+                    compact_torch.fetch_compacted((packed, count)),
+                    MATCH_DTYPE)
             if not len(m):
                 continue
             gi = (g0 + m["qid"] - 1).astype(np.int64)
@@ -730,6 +1106,54 @@ class Classifier:
             m["frame"] = fg[keep]
             all_m.append(m)
         return all_m
+
+    def _stream_probe_matches(self, arr, lens):
+        """Raw MATCH_DTYPE rows for a batch of rows by probing the
+        host-resident index ranges — the raw-match primitive of the
+        long-read chunk path under DB-range streaming (each range is
+        uploaded for its pass and dropped after, as in
+        _dispatch_group_stream).  AA-boundary range cuts make the
+        per-range candidate sets disjoint and the min(2*minHamming, 7)
+        cutoff computed in the owning range globally correct (reference
+        KmerMatcher.cpp:1136)."""
+        from ..models.flagship import (extract_queries_step,
+                                       new_accumulators, probe_range_step)
+
+        r1, j1 = self._up(arr), self._up(lens)
+        ra1 = self._up(np.ascontiguousarray(right_align(arr, lens)))
+        qk, qp, qf, qs, qv, _, _ = extract_queries_step(
+            r1, j1, ra1=ra1, syncmer=self.syncmer, smer_len=self.smer_len,
+            kmer_format=self.kmer_format, win_frac=256)
+        cap = self.cap
+        while True:
+            acc = new_accumulators(cap, qk.shape[0], self.device)
+            self._ranges.sweeps += 1
+            for r in range(self._n_ranges):
+                quad_r, hash_r = self._ranges.upload(r)
+                probe_range_step(qk, qf, qv, quad_r, hash_r, acc, cap=cap,
+                                 kmer_format=self.kmer_format,
+                                 hash_log2_rows=self.hash_log2_rows,
+                                 hash_chain=self.hash_chain)
+                del quad_r, hash_r
+            if int(acc["overflow"]) == 0 or cap >= self._cap_ceiling:
+                break
+            cap = min(cap * 2, self._cap_ceiling)
+            self.cap = max(self.cap, cap)
+        # only the selected candidates cross to the host
+        c, n = torch.nonzero(acc["sel"], as_tuple=True)
+        at = lambda a: a[c, n].cpu().numpy()
+        m = np.zeros(len(c), MATCH_DTYPE)
+        m["qid"] = qs[n].cpu().numpy()
+        m["pos"] = qp[n].cpu().numpy().astype(np.uint32)
+        m["frame"] = qf[n].cpu().numpy()
+        # the quad payload carries euler-first coordinates (prefolded at
+        # init); the host scorer wants node ids -> one euler gather back
+        m["taxid"] = self.taxonomy.euler[at(acc["taxid"])]
+        m["species"] = at(acc["species"]) & np.int32(0x3FFFFFFF)
+        m["dna"] = at(acc["dna_enc"]).astype(np.uint32)
+        m["rh"] = at(acc["rh"]).astype(np.uint16)
+        m["ham"] = at(acc["hamming"]).astype(np.uint8)
+        return m
 
     def classify_file(self, path1, path2=None, progress=None):
         p2 = path2 if self.params.seq_mode == 2 else None
@@ -785,7 +1209,11 @@ class Classifier:
 
     def drive_batches(self, batches, progress=None):
         """Software pipeline over (names, a1, l1, a2, l2) batches (a2/l2
-        are None for unpaired reads)."""
+        are None for unpaired reads).  DB-range streaming uses the
+        grouped loop instead: the heavy cost there is re-uploading
+        index ranges, so batches are grouped to share each sweep."""
+        if self._streaming:
+            return self._drive_batches_stream(batches, progress)
         all_results = []
         done = 0
         depth = self.PIPE_DEPTH
@@ -811,4 +1239,50 @@ class Classifier:
             pend2.append(self._finish_partial(pend1.popleft()))
         while pend2:
             complete(pend2.popleft())
+        return all_results
+
+    def _drive_batches_stream(self, batches, progress=None):
+        """Streaming-mode loop: dispatch GROUPS of batches through
+        shared range sweeps (_dispatch_group_stream).  Two rules: the
+        previous group is finished before the next is dispatched, and
+        the first batch goes alone."""
+        all_results = []
+        done = 0
+        G = self._stream_group_size()
+        group: list = []
+        prev_ctxs: list = []
+
+        def finish_prev():
+            nonlocal prev_ctxs, done
+            for c in prev_ctxs:
+                res = self._finish_complete(self._finish_partial(c))
+                all_results.extend(res)
+                done += len(res)
+                if progress:
+                    progress(done)
+            prev_ctxs = []
+
+        def flush(group):
+            nonlocal prev_ctxs
+            # finish BEFORE dispatching: any overflow retry in the
+            # previous group updates the sticky knobs (cap, win_frac,
+            # path_block, path_width) that the NEXT group's dispatch
+            # reads — dispatching first would send the whole group with
+            # stale knobs and each member would pay its own single-batch
+            # retry sweep
+            finish_prev()
+            prev_ctxs = self._dispatch_group_stream(group)
+
+        first = True
+        for b in batches:
+            group.append(b)
+            # the first batch goes SOLO so its retries settle the
+            # adaptive knobs before a full group commits to them
+            if first or len(group) >= G:
+                flush(group)
+                group = []
+                first = False
+        if group:
+            flush(group)
+        finish_prev()
         return all_results

@@ -11,7 +11,8 @@ spelling (reference src/MetabuliBase.cpp:47-351).
 
 The second read file is used with --seq-mode 2 only; --seq-mode 2 with
 one file classifies it unpaired.  classify runs on the CUDA card unless
---device cpu is given.
+--device cpu is given.  --hbm-gb G keeps an index larger than G/2 GiB on
+the host and streams it through the device in range passes.
 """
 
 import argparse
@@ -37,7 +38,9 @@ def _add_classify_args(p):
     p.add_argument("--print-timers", action="store_true",
                    help="print per-stage timing table after classification")
     p.add_argument("--hbm-gb", type=float, default=0.0, dest="hbm_budget_gb",
-                   help="device-memory budget (GiB) for the index; "
+                   help="device-memory budget (GiB) for the resident index; "
+                        "larger indexes stream in range passes (the "
+                        "device-memory analogue of the reference --max-ram). "
                         "0 = keep the whole index resident")
     p.add_argument("--devices", type=int, default=1,
                    help="device count (only 1 is ported so far)")

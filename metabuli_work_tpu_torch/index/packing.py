@@ -3,9 +3,12 @@
 Host-side numpy packing of the sorted index (pack_db_quad,
 pack_db_rows32, build_aa_hash), a disk cache of the packed layout
 (load_or_pack_wide), state_from_numpy, which turns the packed index and
-LCA tables into the tensors the path-DP device step reads, and
+LCA tables into the tensors the path-DP device step reads,
 match_state_from_numpy, the raw sorted arrays plus bucket tables that
-the host-match step probes instead.
+the host-match step probes instead, and for an index larger than the
+device-memory budget shard_quad_index (contiguous metamer ranges cut at
+AA-part boundaries, one hash geometry) with stream_state_from_numpy (the
+ranges kept on the host, the LCA tables on the device).
 
 Every u32 array is carried on the device as int32 holding the same
 bits (torch has no usable uint32 arithmetic on every backend); the
@@ -131,6 +134,65 @@ def pack_db_rows32(quad: np.ndarray, pad_entries: int = 256) -> np.ndarray:
     return blk.reshape(total // 32, 128)
 
 
+def shard_quad_index(quad: np.ndarray, n_shards: int, wide: bool = True):
+    """Cut a pack_db_quad [M, 4] uint32 array into n_shards contiguous
+    metamer ranges at AA-part boundaries, each packed into 512-byte rows
+    (pack_db_rows32) and padded to one row count, plus per-shard AA hash
+    tables with ONE uniform geometry (row count and chain length are
+    arguments of the probe, so every shard must share them).
+
+    Pad entries carry an all-ones value (AA part 0xFF_FFFFFFFF) which no
+    real metamer can equal (AA symbols are 5-bit codes < 21, so an
+    all-ones 40-bit AA part never occurs) — a padded entry can never pass
+    the probe's AA-equality mask.  Hash lookups of foreign queries miss
+    and resolve to a zero run length.  match_kmers_quad takes db_m as
+    the padded row space when it is given none.
+
+    Returns (quads [n, R32, 128] uint32, hash_tables [n, R, 128] uint32,
+    log2_rows, chain, counts int32 [n]).
+    """
+    if not wide:
+        raise NotImplementedError(
+            "only the wide-row shard layout is ported (ROADMAP.md, Queue 1 "
+            "item 3)")
+    M = quad.shape[0]
+    v = quad[:, 0].astype(np.uint64) | (quad[:, 1].astype(np.uint64) << 32)
+    aa = v >> np.uint64(DNA_BITS)
+    bounds = [0]
+    for k in range(1, n_shards):
+        t = k * M // n_shards
+        while 0 < t < M and aa[t] == aa[t - 1]:
+            t += 1
+        bounds.append(min(t, M))
+    bounds.append(M)
+    hash_kw = dict(slots=WIDE_SLOTS, row_u32=WIDE_ROW_U32)
+    counts = np.diff(bounds).astype(np.int32)
+    S = max(int(counts.max(initial=0)), 1)
+    quads = np.stack([
+        pack_db_rows32(quad[bounds[i]:bounds[i + 1]],
+                       pad_entries=S - (bounds[i + 1] - bounds[i]) + 256)
+        for i in range(n_shards)])
+    shard_values = [v[bounds[i]:bounds[i + 1]] for i in range(n_shards)]
+    builds = [build_aa_hash(sv, **hash_kw) for sv in shard_values]
+    # uniform hash geometry: size every table for the largest shard and
+    # rebuild until all shards agree on one row count (min_log2_rows only
+    # sets the start point — a pathological collision cluster can still
+    # double past it, in which case every other shard re-pads up).  The
+    # chain is the max observed chain; extra chain gathers on smaller
+    # shards are harmless (they just re-miss).
+    log2 = max(b[1] for b in builds)
+    while True:
+        builds = [b if b[1] == log2
+                  else build_aa_hash(sv, min_log2_rows=log2, **hash_kw)
+                  for sv, b in zip(shard_values, builds)]
+        got = max(b[1] for b in builds)
+        if got == log2:
+            break
+        log2 = got
+    chain = max(b[2] for b in builds)
+    return quads, np.stack([b[0] for b in builds]), log2, chain, counts
+
+
 # ---------------------------------------------------------------------- #
 # Persistent cache of the packed layout: packing is a deterministic
 # function of the sorted entry arrays and the geometry but costs minutes
@@ -218,6 +280,26 @@ def state_from_numpy(rows, hash_table, hash_log2_rows, hash_chain, db_m,
         "hash_log2_rows": int(hash_log2_rows),
         "hash_chain": int(hash_chain),
         "db_m": int(db_m),
+        "lca_depth": _as_i32(depth, device),
+        "lca_lift": _as_i32(lift, device),
+        "euler": _as_i32(euler, device),
+        "ef_node": _as_i32(ef_node, device),
+    }
+
+
+def stream_state_from_numpy(quads, hash_tables, hash_log2_rows, hash_chain,
+                            depth, lift, euler, ef_node, device):
+    """State of a streamed index (the output of shard_quad_index): the
+    ranges stay on the HOST as int32 views of the u32 rows (no copy;
+    `stream_quads[r]`, `stream_hts[r]` are what one range pass uploads),
+    the LCA tables go to the device as in state_from_numpy."""
+    host = lambda a: torch.from_numpy(
+        np.ascontiguousarray(a, dtype=np.uint32).view(np.int32))
+    return {
+        "stream_quads": host(quads),
+        "stream_hts": host(hash_tables),
+        "hash_log2_rows": int(hash_log2_rows),
+        "hash_chain": int(hash_chain),
         "lca_depth": _as_i32(depth, device),
         "lca_lift": _as_i32(lift, device),
         "euler": _as_i32(euler, device),

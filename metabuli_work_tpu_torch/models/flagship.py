@@ -5,7 +5,14 @@ redundancy step that follows host scoring, and the host-match step
 
 fused_step_dp is everything the device does per batch on the
 host-scoring flow; the host then scores species from the emitted paths
-and hands the best species per read back to redundancy_counts.
+and hands the best species per read back to redundancy_counts.  It is
+three pieces in a row — extract_queries_step, the probe,
+finish_stream_step — and DB-range streaming runs the same pieces with
+probe_range_step once per index range in the middle, folding each
+range's candidates into accumulators.  fused_step_full is the
+device-assign flow: fused_step_dp, then species scoring and tie/LCA
+assignment (ops/assign_torch) and the redundancy step on the device, so
+that only a [6, B+1] record table and the pair list go home.
 fused_step is the device half of the host-match flow (min_cons_cnt < 2,
 and the chunks of reads beyond the long-read row cap): it returns the
 compacted raw matches and the host runs the whole scorer on them.
@@ -14,7 +21,8 @@ reads2=None means unpaired everywhere.
 
 import torch
 
-from ..ops import compact_torch, dp_cuda, dp_torch, encode_torch, match_torch
+from ..ops import (assign_torch, compact_torch, dp_cuda, dp_torch,
+                   encode_torch, match_torch)
 
 
 def _dyn_gap(syncmer, kmer_format, win_frac):
@@ -64,15 +72,18 @@ def fused_step(reads1, lens1, reads2, lens2, db_values, db_taxids,
     return packed, count, out["overflow"]
 
 
-def _extract_all(reads1, lens1, reads2, lens2, ra1, ra2, *, syncmer,
-                 smer_len, kmer_format, win_frac):
+def extract_queries_step(reads1, lens1, reads2=None, lens2=None, ra1=None,
+                         ra2=None, *, syncmer: bool = False,
+                         smer_len: int = 5, kmer_format: int = 2,
+                         win_frac: int = 0):
     """Query extraction: 6-frame metamer encode (+ mate 2 as a second part
     with the len1+3 position offset) + optional syncmer window compaction
     per part.
 
     Returns flat (qk, qp, qf, qs, qv) query tensors (parts concatenated),
     the per-part (B, 6, W) shapes, and the window-compaction overflow
-    count summed over parts."""
+    count summed over parts.  A streamed run extracts once and keeps
+    these resident across all its range passes."""
     # syncmer window compaction: only ~half the windows pass the anchor
     # rule — shrink the W axis to win_frac/256 of its static size before
     # probing (the dyn_gap path DP chains compacted slots by real
@@ -148,15 +159,58 @@ def _dp_from_probe(out, qp, qs, shapes, win_over, *, cap, kmer_format,
     return stats, paths_packed, resident
 
 
-def fused_step_dp(reads1, lens1, db_quad, *, reads2=None, lens2=None,
-                  min_cons: int = 4, min_cons_euk: int = 9, cap: int = 16,
-                  kmer_format: int = 2, syncmer: bool = False,
-                  smer_len: int = 5, path_width: int = 0, win_frac: int = 0,
-                  path_block: int = 16, ra1=None, ra2=None, hash_table=None,
-                  hash_log2_rows: int = 0, hash_chain: int = 0,
-                  db_m: int = None):
-    """extract (+mate 2) -> probe -> path DP per part -> compaction for
-    one batch.
+def compact5_fits(b: int, lmax1: int, lmax2=None) -> bool:
+    """The compact 5-column path layout holds when every 16-bit field
+    provably fits (g < 2^16, end+26 < 2^16, path hamming < 2^16); long
+    reads beyond 16 kb keep the 7-column layout."""
+    lmax_all = lmax1 + (lmax2 + 3 if lmax2 is not None else 0)
+    return (b * 6 < (1 << 16)) and (lmax_all < (1 << 14))
+
+
+# ---------------------------------------------------------------------- #
+# DB-range streaming: an index too large to keep resident stays on the
+# host, cut into metamer ranges at AA-part boundaries, so each query's
+# whole candidate run lives in exactly ONE range — the per-range
+# [cap, N] contributions are disjoint and merge by masked accumulation,
+# and the min(2*minHamming, 7) cutoff computed inside the owning range
+# equals the global cutoff.
+
+def new_accumulators(cap: int, n: int, device):
+    """Zeroed candidate accumulators of one batch, in the layout of a
+    match_kmers_quad result: one set lives across a whole range sweep."""
+    z = lambda dt: torch.zeros((cap, n), dtype=dt, device=device)
+    return {"sel": z(torch.bool), "hamming": z(torch.int32),
+            "rh": z(torch.int32), "taxid": z(torch.int32),
+            "species": z(torch.int32), "dna_enc": z(torch.int32),
+            "overflow": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def probe_range_step(qk, qf, qv, quad_r, hash_r, acc, *, cap: int,
+                     kmer_format: int, hash_log2_rows: int, hash_chain: int):
+    """One range pass: probe one index range and fold its candidates
+    into `acc` IN PLACE (a fresh set per pass would multiply the peak by
+    the number of live temporaries).  Returns acc."""
+    out = match_torch.match_kmers_quad(
+        qk, qf, qv, quad_r, cap=cap, kmer_format=kmer_format,
+        hash_table=hash_r, hash_log2_rows=hash_log2_rows,
+        hash_chain=hash_chain)
+    sel = out["sel"]
+    acc["sel"] |= sel
+    for k in ("hamming", "rh", "taxid", "species", "dna_enc"):
+        acc[k] += torch.where(sel, out[k], 0)
+    acc["overflow"] += out["overflow"]
+    return acc
+
+
+def finish_stream_step(out, qp, qs, shapes, win_over, *, min_cons: int = 4,
+                       min_cons_euk: int = 9, cap: int = 16,
+                       kmer_format: int = 2, syncmer: bool = False,
+                       smer_len: int = 5, path_width: int = 0,
+                       win_frac: int = 0, path_block: int = 16,
+                       compact5: bool = False):
+    """Path DP per part + compaction over the candidates of one probe
+    (`out`: a match_kmers_quad result, or the accumulators of a range
+    sweep).
 
     Returns (packed_hdr [C, 1+P] int32, resident): column 0 of packed_hdr
     is a stats header (rows 0-3 = candidate-cap overflow, path count,
@@ -165,20 +219,6 @@ def fused_step_dp(reads1, lens1, db_quad, *, reads2=None, lens2=None,
     q_pos, q_sids) stays on the device for redundancy_counts.  The header
     rides in the path array so one device->host copy brings both home.
     """
-    qk, qp, qf, qs, qv, shapes, win_over = _extract_all(
-        reads1, lens1, reads2, lens2, ra1, ra2, syncmer=syncmer,
-        smer_len=smer_len, kmer_format=kmer_format, win_frac=win_frac)
-    out = match_torch.match_kmers_quad(
-        qk, qf, qv, db_quad, cap=cap, kmer_format=kmer_format,
-        hash_table=hash_table, hash_log2_rows=hash_log2_rows,
-        hash_chain=hash_chain, db_m=db_m)
-    # compact 5-column path layout when every 16-bit field provably
-    # fits (g < 2^16, end+26 < 2^16, path hamming < 2^16); long reads
-    # beyond 16 kb keep the 7-column layout
-    b = reads1.shape[0]
-    lmax_all = reads1.shape[1] + (reads2.shape[1] + 3
-                                  if reads2 is not None else 0)
-    compact5 = (b * 6 < (1 << 16)) and (lmax_all < (1 << 14))
     stats, paths_packed, resident = _dp_from_probe(
         out, qp, qs, shapes, win_over, cap=cap, kmer_format=kmer_format,
         syncmer=syncmer, smer_len=smer_len, min_cons=min_cons,
@@ -188,6 +228,68 @@ def fused_step_dp(reads1, lens1, db_quad, *, reads2=None, lens2=None,
                       device=paths_packed.device)
     hdr[:4, 0] = stats.to(torch.int32)
     return torch.cat([hdr, paths_packed], 1), resident
+
+
+def fused_step_dp(reads1, lens1, db_quad, *, reads2=None, lens2=None,
+                  min_cons: int = 4, min_cons_euk: int = 9, cap: int = 16,
+                  kmer_format: int = 2, syncmer: bool = False,
+                  smer_len: int = 5, path_width: int = 0, win_frac: int = 0,
+                  path_block: int = 16, ra1=None, ra2=None, hash_table=None,
+                  hash_log2_rows: int = 0, hash_chain: int = 0,
+                  db_m: int = None):
+    """extract (+mate 2) -> probe of the resident index -> path DP per
+    part -> compaction for one batch; returns finish_stream_step's
+    (packed_hdr, resident)."""
+    qk, qp, qf, qs, qv, shapes, win_over = extract_queries_step(
+        reads1, lens1, reads2, lens2, ra1, ra2, syncmer=syncmer,
+        smer_len=smer_len, kmer_format=kmer_format, win_frac=win_frac)
+    out = match_torch.match_kmers_quad(
+        qk, qf, qv, db_quad, cap=cap, kmer_format=kmer_format,
+        hash_table=hash_table, hash_log2_rows=hash_log2_rows,
+        hash_chain=hash_chain, db_m=db_m)
+    compact5 = compact5_fits(reads1.shape[0], reads1.shape[1],
+                             reads2.shape[1] if reads2 is not None else None)
+    return finish_stream_step(
+        out, qp, qs, shapes, win_over, min_cons=min_cons,
+        min_cons_euk=min_cons_euk, cap=cap, kmer_format=kmer_format,
+        syncmer=syncmer, smer_len=smer_len, path_width=path_width,
+        win_frac=win_frac, path_block=path_block, compact5=compact5)
+
+
+def fused_step_full(reads1, lens1, db_quad, ef_node, euler, depth, lift, *,
+                    reads2=None, lens2=None, min_score: float = 0.0,
+                    tie_ratio: float = 0.95, combine_k: int = 8,
+                    dna_shift: int = 0, n_quot: int = 0, part_w: tuple = (),
+                    **step_kw):
+    """Whole-batch device chain of the device-assign flow: fused_step_dp
+    (step_kw are its keywords) + species assign + redundancy.  The batch
+    must fit the 5-column path layout (compact5_fits).
+
+    Returns (records, packed2): records rows = (live, tie_cnt, total f32
+    bits, tied LCA, first tied species, top species) per 1-based read
+    column; column 0 rows 0-4 hold the stats header (candidate-cap
+    overflow, path count, window overflow, block overflow, combine_k
+    overflow).  packed2 = redundancy_counts' (rid, lca) pair columns at
+    full width, with its own stats column 0.
+    """
+    packed_hdr, resident = fused_step_dp(reads1, lens1, db_quad,
+                                         reads2=reads2, lens2=lens2,
+                                         **step_kw)
+    stats = packed_hdr[:4, 0]
+    B = reads1.shape[0]
+    qlens = torch.zeros(B + 1, dtype=torch.int32, device=reads1.device)
+    qlens[1:] = _max_covered_dev(lens1)
+    if reads2 is not None:
+        qlens[1:] += _max_covered_dev(lens2)
+    records, best_sp, over_k = assign_torch.device_assign(
+        packed_hdr[:, 1:], stats[1], qlens, ef_node, euler, depth, lift,
+        min_score=min_score, tie_ratio=tie_ratio, combine_k=combine_k)
+    records[:4, 0] = stats
+    records[4, 0] = over_k
+    packed2 = redundancy_counts(*resident, best_sp, euler, depth, lift,
+                                dna_shift=dna_shift, n_quot=n_quot,
+                                part_w=part_w)
+    return records, packed2
 
 
 def part_widths(lmax1, syncmer, kmer_format, smer_len, win_frac, lmax2=None):

@@ -310,12 +310,18 @@ def compact_columns(cols, sel, out_width: int = 0):
         src = torch.zeros(Wd + 1, dtype=torch.int64, device=dev)
         src.scatter_(0, d, torch.where(d < Wd, idx, 0))
         return cols[:, src[:Wd]], count
-    packed = torch.zeros_like(cols)
-    packed[:, dest[sel]] = cols[:, sel]
+    if not total:
+        return torch.zeros_like(cols), count
+    # kept rows go to their rank, the rest to a cut-off slot: every
+    # destination is written once, and nothing waits for the device
+    packed = torch.zeros((cols.shape[0], total + 1), dtype=cols.dtype,
+                         device=dev)
+    packed[:, torch.where(sel, dest, total)] = cols
+    packed = packed[:, :total]
     to_last = ~sel | (dest == total - 1)
-    if total and bool(to_last.any()):
-        last = int(torch.where(to_last, idx, -1).max())
-        packed[:, total - 1] = cols[:, last]
+    last = torch.where(to_last, idx, -1).max()
+    packed[:, total - 1] = torch.where(last >= 0, cols[:, last.clamp(min=0)],
+                                       packed[:, total - 1])
     return packed, count
 
 

@@ -180,16 +180,32 @@ def test_cli_paired_outputs_byte_identical(dbs, capsys):
 
 def test_unported_configurations_raise(dbs, monkeypatch):
     _, jdb, _, _ = dbs
-    for kw in (dict(em=True), dict(hbm_budget_gb=1.0)):
-        p = ClassifyParams(**{**PARAMS, **kw})
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            Classifier(jdb, p, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+        Classifier(jdb, ClassifyParams(**{**PARAMS, "em": True}),
+                   device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         Classifier(jdb, ClassifyParams(**PARAMS), mesh=object(), device="cpu")
-    monkeypatch.setenv("METABULI_DEVICE_ASSIGN", "1")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        Classifier(jdb, ClassifyParams(**PARAMS), device="cpu")
     # the flows this test used to refuse now run
-    monkeypatch.delenv("METABULI_DEVICE_ASSIGN")
-    for kw in (dict(seq_mode=2), dict(seq_mode=3), dict(min_cons_cnt=1)):
+    for kw in (dict(seq_mode=2), dict(seq_mode=3), dict(min_cons_cnt=1),
+               dict(hbm_budget_gb=1.0)):
         Classifier(jdb, ClassifyParams(**{**PARAMS, **kw}), device="cpu")
+    monkeypatch.setenv("METABULI_DEVICE_ASSIGN", "1")
+    assert Classifier(jdb, ClassifyParams(**PARAMS),
+                      device="cpu")._device_assign
+
+
+def test_mate_files_of_different_length_raise(dbs, tmp_path):
+    """A mate-2 file shorter or longer than mate 1 is named, with the
+    read count seen (the JAX package ends in a bare RuntimeError)."""
+    root, jdb, _, _ = dbs
+    r1 = os.path.join(root, "r1.fna")
+    short = str(tmp_path / "short.fna")
+    with open(os.path.join(root, "r2.fna")) as f, open(short, "w") as g:
+        g.writelines(f.readlines()[:2 * 13])          # 13 of 22 reads
+    clf = Classifier(jdb, ClassifyParams(**{**PARAMS, "seq_mode": 2}),
+                     device="cpu")
+    with pytest.raises(ValueError, match=r"short\.fna ends after 13 reads"):
+        clf.classify_file(r1, short)
+    with pytest.raises(ValueError, match=r"short\.fna ends after 13 reads.*"
+                                         r"r1\.fna has more"):
+        clf.classify_file(short, r1)
