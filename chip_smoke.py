@@ -43,7 +43,23 @@
      paired: the same reads and pairs with species scoring and tie/LCA
      assignment on the device; every batch must take the device-assign
      dispatch, and every read must equal the host-scoring run's, tax_cnt
-     and top_species included.
+     and top_species included;
+   - the (dp, db) mesh, on a 2 x 2 mesh whose cells cycle over the
+     visible cards (four cells on one card when there is one): "mesh
+     single-end" (the single-end reads), "mesh paired" (the pairs),
+     "mesh streamed" (the single-end reads with hbm_budget_gb 0.25, the
+     index swept over the mesh in host ranges of two shards; then the
+     66,000-base read through the mesh's chunk pass) and "distributed"
+     (two processes of this script joined by torch.distributed over
+     gloo, a global mesh of dp 2 processes x db 2 cells, the first 4,096
+     single-end reads); every read must equal the resident single-device
+     run's (tax_cnt and top_species included), the path DP must launch
+     once per part per dp row, and each prints reads/s beside the
+     resident run's, the bytes the db merge reads a batch and the peak
+     device memory beside the resident run's; then measure_scaling
+     prints reads/s of its own workload on 1, 2 and 4 of the cells (on
+     one card the cells run one after another: the cost of the
+     mechanism, not a speed-up).
    For every path it checks that the plain DP never ran on the card,
    that every launch at cap <= 32 went to the warp variant, that >= 95%
    of reads land on their source species or genus, and that a subset
@@ -70,10 +86,18 @@ The long-read path is profiled on its 10-kb reads alone.
 The second-to-last line is one JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero.  Exits non-zero at once when no CUDA card is visible.
+
+    python3 chip_smoke.py --dist-worker RANK PORT READS WARM OUT
+
+is the distributed path's worker (started by the run above, never by
+hand): it joins the process group at localhost:PORT, classifies READS
+after a warm-up on WARM over the global mesh and writes its own reads'
+records, its launch counts and its parity checks to OUT.
 """
 
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -94,6 +118,7 @@ N_LONG, LONG_LEN, LONG_BATCH = 256, 10_000, 32
 MID_LONG = (24_000, 36_000)      # rows >= 2^14 nt: the 7-column layout
 VERY_LONG = 150_000              # beyond the 64-kb row cap: chunked
 N_HOST_MATCH = 4096
+N_DIST = 4096                    # reads of the two-process path
 STREAM_GB = 0.25                 # budget that cuts the index into 4 ranges
 OVER_CAP = 66_000                # a little beyond the 64-kb row cap
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate
@@ -381,6 +406,16 @@ def full_tuples(results):
              int(q.result.top_species)) for q in results]
 
 
+def records(results):
+    """{read name: full_tuples' fields} as JSON keeps them (f32 score
+    bits, tax_cnt keys as strings): what a distributed worker reports."""
+    return {q.name: [bool(q.result.is_classified),
+                     int(q.result.classification),
+                     int(np.float32(q.result.score).view(np.int32)),
+                     {str(k): v for k, v in q.result.tax_cnt.items()},
+                     int(q.result.top_species)] for q in results}
+
+
 def same_as(name, what, got, ref):
     n_same = sum(a == b for a, b in zip(got, ref))
     print(f"{name}: {n_same}/{len(ref)} reads identical to {what}")
@@ -617,14 +652,70 @@ def profile_path(name, run, n_reads, card, n_batches=None):
           f" s in {sum(e.count for e in waits)} calls, under the profiler")
 
 
+def dist_worker(argv):
+    """One process of the distributed path: rank, port, reads, warm-up
+    reads, output JSON (see the module docstring)."""
+    import torch.distributed as dist
+
+    from metabuli_work_tpu_torch.classify.pipeline import (Classifier,
+                                                           ClassifyParams)
+    from metabuli_work_tpu_torch.ops import dp_cuda
+    from metabuli_work_tpu_torch.parallel.distributed import (
+        init_distributed, make_global_mesh)
+
+    rank, port, reads_path, warm_path, out = argv[:5]
+    rank = int(rank)
+    init_distributed(f"localhost:{port}", 2, rank)
+    n = torch.cuda.device_count()
+    mesh = make_global_mesh(local_devices=[
+        torch.device("cuda", (2 * rank + k) % n) for k in range(2)])
+    mine = [d for i in mesh.local_rows for d in mesh.devices[i]]
+    assert mesh.shape == {"dp": 2, "db": 2} and mesh.local_rows == [rank]
+    assert all(d.type == "cuda" for d in mine), mine
+    index, _, hit = build_or_load_db()
+    assert hit, "the distributed worker found no cached smoke DB"
+    clf = Classifier.from_memory(index, ClassifyParams(
+        seq_mode=1, batch_size=BATCH, min_score=0.15, min_sp_score=0.5),
+        mesh=mesh)
+    clf.classify_file(warm_path)
+    m0 = clf.mesh_merged_bytes
+    r = drive(dp_cuda, clf, lambda: clf.classify_file(reads_path))
+    assert r["launches"] == r["dispatches"] > 0     # one row, one part
+    max_err = {"warp": 0, "block": 0}
+    for key, (args, kw) in r["first"].items():
+        ref = dp_cuda.path_dp_blocked_ref(*args, **kw)
+        check(max_err, f"main-path distributed process {rank} cap={key[0]} "
+              f"W={key[1]}", dp_cuda.variant(key[0]),
+              dp_cuda.path_dp_blocked(*args, **kw), ref)
+    with open(out, "w") as f:
+        json.dump({"records": records(r["results"]),
+                   "launches": r["launches"], "counts": r["counts"],
+                   "dispatches": r["dispatches"], "dt": r["dt"],
+                   "merged": clf.mesh_merged_bytes - m0,
+                   "max_err": max_err}, f)
+    print(f"distributed process {rank}: cells {[str(d) for d in mine]}, "
+          f"{len(r['results'])} reads in {r['dt']:.3f} s, "
+          f"{r['launches']} path DP launches, {len(r['first'])} launch "
+          f"inputs exact against the plain version, peak device memory "
+          f"{(r['peak'] - r['base']) / 2**30:.3f} GiB above its start",
+          flush=True)
+    print(f"distributed process {rank} stage timer (host seconds):\n"
+          f"{clf.timer.report()}", flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
 def main(argv=()):
     profiled = "--profile" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
+    if "--dist-worker" in argv:
+        return dist_worker(argv[argv.index("--dist-worker") + 1:])
     from metabuli_work_tpu_torch.classify.pipeline import (Classifier,
                                                            ClassifyParams)
     from metabuli_work_tpu_torch.ops import dp_cuda
+    from metabuli_work_tpu_torch.parallel.sharding import make_mesh
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -650,9 +741,9 @@ def main(argv=()):
     short = dict(min_score=0.15, min_sp_score=0.5)
     long_kw = dict(seq_mode=3, min_score=0.008, min_sp_score=0.0)
 
-    def classifier(device="cuda", **kw):
+    def classifier(device="cuda", mesh=None, **kw):
         return Classifier.from_memory(index, ClassifyParams(**kw),
-                                      device=device)
+                                      device=device, mesh=mesh)
 
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -966,6 +1057,158 @@ def main(argv=()):
             clf = cpu = None
             torch.cuda.empty_cache()
 
+        # ------------------------------------------------ the (dp, db) mesh
+        n_cards = torch.cuda.device_count()
+        cells = [torch.device("cuda", k % n_cards) for k in range(4)]
+        mesh = make_mesh(devices=cells)
+        assert mesh.shape == {"dp": 2, "db": 2}
+        print(f"mesh: dp={mesh.shape['dp']} x db={mesh.shape['db']}, cells "
+              f"{[str(d) for d in cells]} on {n_cards} card(s)")
+        for name, mode, files, warm, ref, n, unit, s_, kw in (
+                ("mesh single-end", 1, (fa("reads.fna"),), (fa("warm.fna"),),
+                 runs["single-end"], N_READS, "reads", src, {}),
+                ("mesh paired", 2, (fa("pairs_1.fna"), fa("pairs_2.fna")),
+                 (fa("warm_1.fna"), fa("warm_2.fna")), runs["paired"],
+                 N_PAIRS, "pairs", src2, {}),
+                ("mesh streamed", 1, (fa("reads.fna"),), (fa("warm.fna"),),
+                 runs["single-end"], N_READS, "reads", src,
+                 {"hbm_budget_gb": STREAM_GB})):
+            t0 = time.perf_counter()
+            clf = classifier(mesh=mesh, seq_mode=mode, batch_size=BATCH,
+                             **short, **kw)
+            setup = time.perf_counter() - t0
+            assert clf.mesh is mesh and clf._mesh_stream == bool(kw)
+            clf.classify_file(*warm)
+            m0 = clf.mesh_merged_bytes
+            up0 = [rs.stats() for rs in clf._mesh_ranges.values()]
+            r = runs[name] = drive(dp_cuda, clf,
+                                   lambda: clf.classify_file(*files))
+            # one launch per part per dp row of a dispatched batch
+            assert r["launches"] == len(files) * 2 * r["dispatches"] > 0, \
+                f"{name}: {r['launches']} launches for {r['dispatches']} " \
+                f"dispatched batches"
+            check_path(name, r, n, s_, dp_cuda, card, unit=unit)
+            same_as(name, "the resident single-device run (tax_cnt and "
+                    "top_species included)", full_tuples(r["results"]),
+                    full_tuples(ref["results"]))
+            merged = (clf.mesh_merged_bytes - m0) / r["dispatches"]
+            print(f"{name}: {n / r['dt']:.1f} {unit}/s against the resident "
+                  f"single-device run's {n / ref['dt']:.1f}; setup (shard + "
+                  f"upload) {setup:.1f} s; the db merge reads "
+                  f"{merged / 1e6:.2f} MB a dispatched batch from the other "
+                  f"cells ({r['dispatches']} dispatches); peak device memory "
+                  f"above the run's start {(r['peak'] - r['base']) / 2**30:.3f}"
+                  f" GiB against the resident run's "
+                  f"{(ref['peak'] - ref['base']) / 2**30:.3f} GiB; on {card}")
+            if kw:
+                up1 = [rs.stats() for rs in clf._mesh_ranges.values()]
+                sweeps = sum(b["sweeps"] - a["sweeps"]
+                             for a, b in zip(up0, up1))
+                up_b = sum(b["bytes"] - a["bytes"] for a, b in zip(up0, up1))
+                up_s = sum(b["copy_s"] - a["copy_s"]
+                           for a, b in zip(up0, up1))
+                assert clf._mesh_n_ranges >= 2 and sweeps >= r["dispatches"]
+                print(f"{name}: {clf._mesh_n_ranges} ranges of 2 shards "
+                      f"({clf._n_ranges} shards) swept once a dispatched "
+                      f"batch: {up_b / 1e6:.1f} MB uploaded in {up_s:.3f} s "
+                      f"of copies = {up_b / up_s / 1e9:.2f} GB/s; against the "
+                      f"single-device streamed run's "
+                      f"{N_READS / runs['streamed']['dt']:.1f} reads/s; on "
+                      f"{card}")
+            stage_table(name, clf, card)
+            if profiled:
+                profile_path(name, lambda: clf.classify_file(*files), n,
+                             card, n // BATCH)
+            clf = None
+            torch.cuda.empty_cache()
+
+        # the 66,000-base read through the streamed mesh's chunk pass
+        clf = classifier(mesh=mesh, batch_size=LONG_BATCH,
+                         hbm_budget_gb=STREAM_GB, **long_kw)
+        assert clf._mesh_stream
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        q_m = clf._classify_long_read("over_cap", seq)
+        dt = time.perf_counter() - t0
+        same_as("mesh streamed over-cap read", "the resident classifier's "
+                "chunk pass", full_tuples([q_m]), full_tuples([q_r]))
+        assert clf._match_state is None
+        tot = clf.timer.totals
+        print(f"over-cap read ({OVER_CAP} bases), mesh streamed: {dt:.3f} s "
+              f"(probe {tot['long_probe']:.3f} s over {clf._n_ranges} host "
+              f"shards, host scoring {tot['long_score']:.3f} s), peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+              f"on {card}")
+        clf = None
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------------ distributed
+        write_fasta(fa("dist.fna"), reads[:N_DIST])
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            port = sk.getsockname()[1]
+        outs = [fa(f"dist_{k}.json") for k in range(2)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-worker",
+             str(k), str(port), fa("dist.fna"), fa("warm.fna"), outs[k]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for k in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for k, (p, log) in enumerate(zip(procs, logs)):
+            print(log, end="")
+            assert p.returncode == 0, \
+                f"distributed worker {k} failed:\n{log[-3000:]}"
+        dist_parts = []
+        for o in outs:
+            with open(o) as f:
+                dist_parts.append(json.load(f))
+        merged = {}
+        for part in dist_parts:
+            assert part["records"] and part["launches"] > 0
+            for k, v in part["records"].items():
+                assert k not in merged, f"read {k} scored by two processes"
+                merged[k] = v
+            for which, e in part["max_err"].items():
+                max_err[which] = max(max_err[which], e)
+        assert merged == records(runs["single-end"]["results"][:N_DIST]), \
+            "distributed: the merged records differ from the resident run"
+        dist_dt = max(part["dt"] for part in dist_parts)
+        se = runs["single-end"]
+        print(f"distributed: {len(merged)}/{N_DIST} reads identical to the "
+              f"resident single-device run (tax_cnt and top_species "
+              f"included), each scored by one process "
+              f"({' + '.join(str(len(p['records'])) for p in dist_parts)}); "
+              f"{N_DIST / dist_dt:.1f} reads/s over both processes (slower "
+              f"process's classify wall {dist_dt:.3f} s) against the resident "
+              f"run's {N_READS / se['dt']:.1f}; db merge "
+              f"{sum(p['merged'] for p in dist_parts) / 1e6:.2f} MB in all; "
+              f"path DP launches "
+              f"{[p['launches'] for p in dist_parts]}; whole path with "
+              f"process start and setup {time.perf_counter() - t0:.1f} s; "
+              f"on {card}")
+
+        # ------------------------------------------------ measure_scaling
+        from metabuli_work_tpu_torch.parallel.scaling import measure_scaling
+
+        t0 = time.perf_counter()
+        sc = measure_scaling(device_counts=(1, 2, 4), batch=BATCH, iters=4,
+                             devices=cells)
+        print(f"measure_scaling on cells {[str(d) for d in cells]}: "
+              f"{ {n: round(v, 1) for n, v in sc.items()} } reads/s by mesh "
+              f"size ({time.perf_counter() - t0:.1f} s); cells that share a "
+              f"card run one after another: the mechanism's cost, not a "
+              f"speed-up; on {card}")
+
     # ------------------------------- main-path parity and kernel timings
     # the plain version runs once per long-read shape (seconds a call)
     timed = {name: time_shapes(name, r, dp_cuda, card, max_err,
@@ -999,12 +1242,14 @@ def main(argv=()):
             ("warp", "path_dp_warp.cu", "path_dp"),
             ("block", "path_dp.cu", "path_dp_block")):
         by_path = {p: r["counts"][which] for p, r in runs.items()}
+        # the two processes' launches, counted by each around its run
+        by_path["distributed"] = sum(p["counts"][which] for p in dist_parts)
         # the variant's first launch on any path, single-end first
         where = next(((p, k) for p, r in runs.items() for k in r["calls"]
                       if dp_cuda.variant(k[0]) == which and k in r["first"]),
                      None)
         if where is None:
-            assert not any(by_path.values())
+            assert not any(by_path.values()), by_path
             print(f"{which} variant (csrc/{src_file}): not launched on any "
                   f"path (no launch at its caps); parity max_abs_err "
                   f"{max_err[which]}")

@@ -39,8 +39,19 @@ index: species scoring and tie/LCA assignment run on the device too
 (flagship.fused_step_full), and the host decodes one [6, B+1] record
 table per batch (_dispatch_batch_full, _finish_full_phase1).
 
-Only a single device is handled; several devices and --em raise
-NotImplementedError naming the ROADMAP.md item that brings them.
+Given a (dp, db) mesh (parallel/sharding.Mesh), the index is cut over
+'db' and every batch over 'dp': each dp row extracts its reads, each
+cell probes its shard, the db merge sums a row's cells and each row runs
+the path-DP finish (parallel/sharding.make_sharded_stream_steps,
+_dispatch_batch_dp_sharded); with --hbm-gb smaller than twice the index
+over the 'db' axis, every batch sweeps host ranges of n_db shards
+through the mesh (mesh x streaming).  The host finish is the same for
+one device and a mesh: a single device is a mesh of one row here, and a
+mesh's stats header is reduced over its rows (across processes too)
+before the retry ladder reads it.
+
+--em raises NotImplementedError naming the ROADMAP.md item that brings
+it.
 """
 
 import math
@@ -54,14 +65,17 @@ import torch
 
 from ..device import resolve_device
 from ..index.format import KmerIndex, load_index
-from ..index.packing import (load_or_pack_wide, match_state_from_numpy,
-                             pack_db_quad, shard_quad_index,
-                             state_from_numpy, stream_state_from_numpy)
+from ..index.packing import (load_or_pack_wide, load_or_shard,
+                             match_state_from_numpy,
+                             sharded_state_from_numpy, state_from_numpy,
+                             stream_state_from_numpy)
 from ..io.fasta import read_seq_file
 from ..ops import compact_torch
 from ..ops import mask as mask_ops
 from ..ops.dp_torch import decode_paths
 from ..ops.encode_torch import right_align
+from ..parallel.sharding import (Mesh, make_sharded_redundancy,
+                                 make_sharded_stream_steps, reduce_header)
 from ..utils.timing import StageTimer
 from .taxonomer import MATCH_DTYPE, ReadResult, sort_matches
 from .taxonomer_vec import VectorTaxonomer
@@ -155,7 +169,7 @@ class _HostCopy:
             self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             self.host.copy_(t, non_blocking=True)
             self.event = torch.cuda.Event()
-            self.event.record()
+            self.event.record(torch.cuda.current_stream(t.device))
         else:
             self.host, self.event = t, None
 
@@ -210,9 +224,10 @@ class _RangeStream:
         stage[1].copy_(self.hts[r])
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
+        stream = torch.cuda.current_stream(self.device)
+        t0.record(stream)
         out = tuple(a.to(self.device, non_blocking=True) for a in stage)
-        t1.record()
+        t1.record(stream)
         self._pending[s] = (t0, t1)
         self.bytes_uploaded += self.range_bytes
         return out
@@ -245,11 +260,16 @@ class Classifier:
 
     def _init_from_index(self, index: KmerIndex, params: ClassifyParams,
                          mesh=None, device=None):
-        if mesh is not None:
-            raise _not_ported("multi-device classify", "Queue 1 item 11")
         if params.em:
             raise _not_ported("--em", "Queue 1 item 13")
-        self.device = resolve_device(device)
+        # multi-device: a (dp, db) parallel.sharding.Mesh; its first
+        # local row's device is the classifier's device.  _grid is the
+        # dp-row layout the host finish walks: the mesh, or one row of
+        # one cell
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.device = resolve_device(device) if mesh is None \
+            else mesh.row_device(mesh.local_rows[0])
+        self._grid = self.mesh or Mesh([[self.device]])
         self.params = params
         self.index = index
         # DB-range streaming: when the packed index (16 B per metamer)
@@ -259,7 +279,8 @@ class Classifier:
             or float(os.environ.get("METABULI_HBM_GB", "0") or 0)
         self._hbm_budget_gb = budget_gb
         self._shard_bytes = len(index.values) * 16
-        self._streaming = (budget_gb > 0 and self._shard_bytes
+        self._streaming = (self.mesh is None and budget_gb > 0
+                           and self._shard_bytes
                            > budget_gb * (1 << 30) * 0.5)
         self.taxonomy = index.taxonomy
         meta = index.meta
@@ -325,11 +346,17 @@ class Classifier:
         # host-scoring flow.
         self._device_assign = (
             os.environ.get("METABULI_DEVICE_ASSIGN") == "1"
-            and self.use_device_dp and not self._streaming)
+            and self.use_device_dp and not self._streaming
+            and self.mesh is None)
         # paths of one (read, species) run the device-assign step
         # combines; a longer run triggers a sticky doubled re-run
         self._combine_k = 8
+        self._ranges = None
         if not self.use_device_dp:
+            if self.mesh is not None:
+                raise ValueError(
+                    "multi-device classify requires min_cons_cnt >= 2 "
+                    "(the device path-DP flow)")
             if self._streaming:
                 raise ValueError(
                     "DB-range streaming requires min_cons_cnt >= 2 "
@@ -352,14 +379,17 @@ class Classifier:
         assert len(self.taxonomy.euler) < (1 << 25), \
             "taxonomy too large for packed-key redundancy kernel"
         db_ef = ef[self.index.taxids.astype(np.int64)].astype(np.int32)
+        if self.mesh is not None:
+            self._init_mesh(db_ef, sp_euk, depth, lift, ef.astype(np.int32))
+            return
         if self._streaming:
             # the index stays on the HOST, cut into AA-boundary ranges of
             # at most half the budget; classify loops range passes per
             # group of batches
             budget = self._hbm_budget_gb * (1 << 30) * 0.5
             n_ranges = max(2, int(np.ceil(self._shard_bytes / budget)))
-            quads, hts, log2_rows, chain, _ = shard_quad_index(
-                pack_db_quad(self.index.values, db_ef, sp_euk), n_ranges)
+            quads, hts, log2_rows, chain, _ = load_or_shard(
+                self.index.values, db_ef, sp_euk, n_ranges)
             st = stream_state_from_numpy(
                 quads, hts, log2_rows, chain, depth, lift,
                 self.taxonomy.euler.astype(np.int32), ef.astype(np.int32),
@@ -369,6 +399,8 @@ class Classifier:
             self._n_ranges = n_ranges
             for k, v in st.items():
                 setattr(self, k, v)
+            self._tables = {self.device: (self.euler, self.lca_depth,
+                                          self.lca_lift)}
             return
         # 512-byte rows + a one-row-chain hash up to a 3 GiB table
         rows, ht, log2_rows, chain, db_m = load_or_pack_wide(
@@ -379,6 +411,43 @@ class Classifier:
                               ef.astype(np.int32), self.device)
         for k, v in st.items():
             setattr(self, k, v)
+        self._tables = {self.device: (self.euler, self.lca_depth,
+                                      self.lca_lift)}
+
+    def _init_mesh(self, db_ef, sp_euk, depth, lift, ef):
+        """The index cut over the mesh's 'db' axis at AA-part boundaries,
+        one hash geometry for all shards.  Resident: shard c on the device
+        of every cell of column c, once per device.  Mesh x streaming:
+        when the index exceeds the budget summed over the 'db' axis, it
+        stays on the host cut into n_ranges x n_db shards; every batch
+        sweeps the ranges, range r's shards r*n_db .. r*n_db+n_db-1 one to
+        each db column, through a _RangeStream per distinct device.  The
+        host shards are also the range set a read beyond the row cap
+        probes (_stream_probe_matches)."""
+        n_db = self.mesh.shape["db"]
+        budget = self._hbm_budget_gb * (1 << 30) * 0.5
+        self._mesh_stream = bool(budget > 0
+                                 and self._shard_bytes > budget * n_db)
+        n_ranges = max(2, int(np.ceil(self._shard_bytes / (budget * n_db)))) \
+            if self._mesh_stream else 1
+        quads, hts, log2_rows, chain, _ = load_or_shard(
+            self.index.values, db_ef, sp_euk, n_ranges * n_db)
+        st = sharded_state_from_numpy(
+            quads, hts, log2_rows, chain, depth, lift,
+            self.taxonomy.euler.astype(np.int32), ef, self.mesh,
+            resident=not self._mesh_stream)
+        self.hash_log2_rows, self.hash_chain = log2_rows, chain
+        self._host_shards = (st["stream_quads"], st["stream_hts"])
+        self._n_ranges = n_ranges * n_db
+        self._mesh_n_ranges = n_ranges
+        self._cells = st.get("cells")
+        self._tables = st["tables"]
+        self.euler, self.lca_depth, self.lca_lift = self._tables[self.device]
+        self._mesh_ranges = {d: _RangeStream(*self._host_shards, d)
+                             for d in self.mesh.local_devices()} \
+            if self._mesh_stream else {}
+        self._ranges = self._mesh_ranges.get(self.device)
+        self.mesh_merged_bytes = 0      # read by the db merges so far
 
     def _host_match_state(self):
         """The raw sorted arrays + bucket tables the host-match step
@@ -503,6 +572,9 @@ class Classifier:
         path_width = path_width or self._path_width
         win_frac = win_frac or self._win_frac
         path_block = path_block or self._path_block
+        if self.mesh is not None:
+            return self._dispatch_batch_dp_sharded(
+                names, a1, l1, a2, l2, cap, path_width, win_frac, path_block)
         with self.timer.stage("dispatch"):
             r1, j1, ra1, l1 = self._prep_arrays(a1, l1, B)
             r2 = j2 = ra2 = l2_c = None
@@ -521,22 +593,106 @@ class Classifier:
             lmax2 = r2.shape[1] if r2 is not None else None
             part_w = part_widths(r1.shape[1], self.syncmer, self.kmer_format,
                                  self.smer_len, win_frac, lmax2=lmax2)
-            return self._dp_ctx(names, a1, a2, l1, l2_c, cap, packed_hdr,
-                                resident, r1.shape[1], lmax2, part_w)
+            return self._dp_ctx(names, a1, a2, l1, l2_c, cap,
+                                {0: (packed_hdr, resident)}, B,
+                                r1.shape[1], lmax2, part_w)
 
-    def _dp_ctx(self, names, a1, a2, l1, l2, cap, packed_hdr, resident,
-                lmax1, lmax2, part_w):
-        """What _finish_dp_phase1 needs of a dispatched batch; starts the
-        copy that carries the stats header (column 0) and the estimated
-        path prefix home together."""
-        est = min(self._path_estimate, packed_hdr.shape[1] - 1)
-        prefix = _HostCopy(packed_hdr[:, :est + 1])
+    def _dp_ctx(self, names, a1, a2, l1, l2, cap, outs, Bl, lmax1, lmax2,
+                part_w):
+        """What _finish_dp_phase1 needs of a dispatched batch: per dp row
+        (outs = {row: (packed_hdr, resident)}, Bl reads a row) the paths,
+        the resident tensors and the copy that carries the stats header
+        (column 0) and the estimated path prefix home together."""
+        width = next(iter(outs.values()))[0].shape[1] - 1
+        est = min(self._path_estimate, width)
+        rows = {i: {"paths": ph, "prefix": _HostCopy(ph[:, :est + 1]),
+                    "resident": res} for i, (ph, res) in outs.items()}
         lmax = lmax1 + (lmax2 + 3 if lmax2 is not None else 0)
         n_quot = lmax // int(self.taxonomer.dna_shift) + 2
         return {"dp": True, "names": names, "l1": l1, "l2": l2, "cap": cap,
-                "a1": a1, "a2": a2,
-                "paths": packed_hdr, "prefix": prefix, "est": est,
-                "resident": resident, "n_quot": n_quot, "part_w": part_w}
+                "a1": a1, "a2": a2, "rows": rows, "Bl": Bl,
+                "path_width": width, "est": est, "n_quot": n_quot,
+                "part_w": part_w}
+
+    # ------------------------------------------------------------------ #
+    # multi-device: the (dp, db) mesh
+    def _prep_arrays_sharded(self, a1, l1, a2, l2, B):
+        """Pad the batch to a multiple of dp with zero-length reads, crop
+        each mate to its length bucket, and upload each local dp row's
+        slice (reads, lengths, right-aligned copy) to the row's device;
+        a process uploads only its own rows.  Returns ({row: (r1, j1, r2,
+        j2, ra1, ra2)}, host lengths of mate 1 and 2 (None unpaired), B_pad,
+        lmax1, lmax2)."""
+        dp = self.mesh.shape["dp"]
+        B_pad = -(-max(B, 1) // dp) * dp
+        Bl = B_pad // dp
+
+        def pad(a):
+            out = np.zeros((B_pad,) + a.shape[1:], dtype=a.dtype)
+            out[:B] = a
+            return out
+
+        # per mate: padded rows, padded lengths, right-aligned copy
+        h1, l1 = self._crop(a1, l1, B)
+        mates = [(pad(h1), pad(l1))]
+        if a2 is not None:
+            h2, l2 = self._crop(a2, l2, B)
+            mates.append((pad(h2), pad(l2)))
+        host = [(h, lp, np.ascontiguousarray(right_align(h, lp)))
+                for h, lp in mates]
+        rows = {}
+        for i in self.mesh.local_rows:
+            dev = self.mesh.row_device(i)
+            up = lambda a: torch.from_numpy(np.ascontiguousarray(
+                a[i * Bl:(i + 1) * Bl])).to(dev, non_blocking=True)
+            r1, j1, ra1 = (up(a) for a in host[0])
+            r2, j2, ra2 = (up(a) for a in host[1]) if a2 is not None \
+                else (None, None, None)
+            rows[i] = (r1, j1, r2, j2, ra1, ra2)
+        return (rows, l1, l2 if a2 is not None else None, B_pad,
+                h1.shape[1], h2.shape[1] if a2 is not None else None)
+
+    def _dispatch_batch_dp_sharded(self, names, a1, l1, a2, l2, cap,
+                                   path_width, win_frac, path_block):
+        """A batch over the mesh: extract per dp row, probe per cell (the
+        resident shards, or every host range in turn under mesh x
+        streaming), the db merge and the path-DP finish per row.  Same
+        ctx contract as the single-device dispatch, one entry a row."""
+        from ..models.flagship import part_widths
+
+        B = len(names)
+        n_db = self.mesh.shape["db"]
+        with self.timer.stage("dispatch"):
+            rows, l1, l2_c, B_pad, lm1, lm2 = self._prep_arrays_sharded(
+                a1, l1, a2, l2, B)
+            extract, probe, finish = make_sharded_stream_steps(
+                self.mesh, cap=cap, kmer_format=self.kmer_format,
+                syncmer=self.syncmer, smer_len=self.smer_len,
+                min_cons=int(self.params.min_cons_cnt),
+                min_cons_euk=int(self.params.min_cons_cnt_euk),
+                path_width=path_width, win_frac=win_frac,
+                path_block=path_block, hash_log2_rows=self.hash_log2_rows,
+                hash_chain=self.hash_chain)
+            state = extract(rows)
+            if self._mesh_stream:
+                for rs in self._mesh_ranges.values():
+                    rs.sweeps += 1
+                for r in range(self._mesh_n_ranges):
+                    with self.timer.stage("upload"):
+                        shards = self.mesh.place(
+                            lambda c, d: self._mesh_ranges[d].upload(
+                                r * n_db + c))
+                    probe(state, shards)
+                    del shards      # one range at a time on the devices
+            else:
+                probe(state, self._cells)
+            outs, merged = finish(state)
+            self.mesh_merged_bytes += merged
+            part_w = part_widths(lm1, self.syncmer, self.kmer_format,
+                                 self.smer_len, win_frac, lmax2=lm2)
+            return self._dp_ctx(names, a1, a2, l1, l2_c, cap, outs,
+                                B_pad // self.mesh.shape["dp"], lm1, lm2,
+                                part_w)
 
     # ------------------------------------------------------------------ #
     # DB-range streaming
@@ -609,7 +765,8 @@ class Classifier:
                                      win_frac, lmax2=p["lm2"])
                 ctxs.append(self._dp_ctx(
                     p["names"], p["a1"], p["a2"], p["l1"], p["l2"], cap,
-                    packed_hdr, resident, p["lm1"], p["lm2"], part_w))
+                    {0: (packed_hdr, resident)}, p["B"], p["lm1"], p["lm2"],
+                    part_w))
         return ctxs
 
     def _stream_group_size(self) -> int:
@@ -758,16 +915,27 @@ class Classifier:
         # the pairs came at full width: phase 2 never needs a re-run
         return {"names": names, "lens1": lens1, "lens2": lens2,
                 "results": results, "deferred": deferred, "qlens": qlens,
-                "prefix2": ctx["pairs"],
+                "pairs": {0: ctx["pairs"]}, "Bl": B,
                 "est2": ctx["pairs"].host.shape[1] - 1}
+
+    def _header(self, ctx):
+        """ONE blocking fetch per local dp row (its stats column and the
+        estimated path prefix), and the stats the retry ladder reads:
+        candidate-cap overflow, path count, window-compaction overflow,
+        blocked-emission overflow — over all dp rows of the batch
+        (reduce_header: counts summed, the path count the largest row's),
+        across processes too, so every process takes the same retries."""
+        hdr = {i: r["prefix"].numpy() for i, r in ctx["rows"].items()}
+        g = reduce_header({i: h[:4, 0] for i, h in hdr.items()},
+                          self._grid.shape["dp"], self._grid.multi_process)
+        return hdr, next(iter(g.values()))[[0, 4, 2, 3]]
 
     def _finish_dp_phase1(self, ctx):
         """Fetch emitted paths, score species, enqueue the redundancy step
         — but do NOT wait for it (phase 2 does), so its device work sits
         behind the next batch's fused step."""
         with self.timer.stage("hdr_sync"):
-            hdr = ctx["prefix"].numpy()      # ONE blocking fetch
-            st = hdr[:4, 0]
+            hdr, st = self._header(ctx)
         # Overflow retry ladder: every re-dispatch carries the EFFECTIVE
         # knob values of retries already taken this batch, and every
         # condition is rechecked after each retry.
@@ -787,99 +955,115 @@ class Classifier:
             elif int(st[3]) > 0:
                 self._path_block *= 2
             # path-compaction width overflow: doubled static width
-            elif int(st[1]) > ctx["paths"].shape[1] - 1:
+            elif int(st[1]) > ctx["path_width"]:
                 self._path_width = max(self._path_width,
-                                       ctx["paths"].shape[1] - 1) * 2
+                                       ctx["path_width"]) * 2
             else:
                 break
             with self.timer.stage("retry"):
                 ctx = self._dispatch_batch_dp(
                     ctx["names"], ctx["a1"], ctx["l1"], ctx["a2"], ctx["l2"],
                     cap=eff_cap, win_frac=eff_wf)
-                hdr = ctx["prefix"].numpy()
-                st = hdr[:4, 0]
+                hdr, st = self._header(ctx)
 
-        names, l1, l2 = ctx["names"], ctx["l1"], ctx["l2"]
+        names, l1, l2, Bl = ctx["names"], ctx["l1"], ctx["l2"], ctx["Bl"]
         B = len(names)
+        B_pad = Bl * self._grid.shape["dp"]
         with self.timer.stage("fetch"):
-            n = int(st[1])
-            if n <= ctx["est"]:
-                arr = hdr[:, 1:n + 1]
-            else:
-                arr = ctx["paths"][:, 1:n + 1].cpu().numpy()
+            arrs = {}
+            for i, h in hdr.items():
+                n = int(h[1, 0])
+                arrs[i] = h[:, 1:n + 1] if n <= ctx["est"] else \
+                    ctx["rows"][i]["paths"][:, 1:n + 1].cpu().numpy()
+            n_max = max(a.shape[1] for a in arrs.values())
             self._path_estimate = _est_update(self._path_estimate,
-                                              int(n * 1.15), step=4096,
+                                              int(n_max * 1.15), step=4096,
                                               floor=2048)
-            self._update_path_width(n)
+            self._update_path_width(int(st[1]))
 
         with self.timer.stage("score"):
-            paths = decode_paths(arr)
-            qid = (paths["g"] // 6 + 1).astype(np.int64)
-            frame = (paths["g"] % 6).astype(np.int64)
+            parts = []
+            for i, a in arrs.items():
+                d = decode_paths(a)
+                g = d.pop("g")
+                # read ids are local to the row: row i holds reads
+                # i*Bl+1 .. (i+1)*Bl of the batch
+                d["qid"] = (g // 6 + 1 + i * Bl).astype(np.int64)
+                d["frame"] = (g % 6).astype(np.int64)
+                parts.append(d)
+            paths = {k: np.concatenate([p[k] for p in parts])
+                     for k in parts[0]}
+            qid, frame = paths["qid"], paths["frame"]
             # reference emission order per (read, species): frame asc,
             # pos asc — one packed-key stable argsort when it fits 63 bits
             if len(qid) and (int(paths["end"].max()) < (1 << 16)
-                             and B < (1 << 19)):
+                             and B_pad < (1 << 19)):
                 key = (((qid << 25) | paths["species"]) << 19) \
                     | (frame << 16) | paths["end"]
                 order = np.argsort(key, kind="stable")
             else:
                 order = np.lexsort((np.arange(len(qid)), paths["end"], frame,
                                     paths["species"], qid))
-            pa = {
-                "qid": qid[order], "species": paths["species"][order],
-                "start": paths["start"][order], "end": paths["end"][order],
-                "score": paths["score"][order],
-                "hamming": paths["hamming"][order],
-                "rh_start": paths["rh_start"][order],
-                "rh_end": paths["rh_end"][order],
-            }
-            results = [ReadResult() for _ in range(B)]
+            pa = {k: paths[k][order] for k in (
+                "qid", "species", "start", "end", "score", "hamming",
+                "rh_start", "rh_end")}
+            # the rows' pad reads (beyond B) have no length and no paths
+            results = [ReadResult() for _ in range(B_pad)]
             lens1, lens2, qlens = self._query_lengths(l1, l2, B)
+            qlens = np.pad(qlens, (0, B_pad - B))
             deferred = self.taxonomer.score_paths(pa, qlens, results)
 
+        # the reads of this process's rows (all of them in one process)
+        local = [r for i in self._grid.local_rows
+                 for r in range(i * Bl, min((i + 1) * Bl, B))]
         out_ctx = {"names": names, "lens1": lens1, "lens2": lens2,
-                   "results": results, "deferred": deferred, "qlens": qlens}
+                   "results": results, "deferred": deferred, "qlens": qlens,
+                   "Bl": Bl, "local_reads": local}
         with self.timer.stage("redundancy"):
             if deferred:
-                from ..models.flagship import redundancy_counts
-
-                best_sp = np.zeros(B + 1, dtype=np.int32)
+                best_sp = np.zeros((self._grid.shape["dp"], Bl + 1),
+                                   dtype=np.int32)
                 for rid, _, _, taxid in deferred:
-                    best_sp[rid] = taxid
-                bsp = torch.from_numpy(best_sp).to(self.device)
-                dna_shift = int(self.taxonomer.dna_shift)
-                res = ctx["resident"]
+                    s, r = divmod(rid - 1, Bl)
+                    best_sp[s, r + 1] = taxid
+                red = make_sharded_redundancy(
+                    self._grid, dna_shift=int(self.taxonomer.dna_shift),
+                    n_quot=ctx["n_quot"], part_w=ctx["part_w"])
+                residents = {i: r["resident"]
+                             for i, r in ctx["rows"].items()}
 
-                def rerun(w, _n=ctx["n_quot"], _p=ctx["part_w"]):
-                    return redundancy_counts(
-                        *res, bsp, self.euler, self.lca_depth, self.lca_lift,
-                        dna_shift=dna_shift, n_quot=_n, part_w=_p, out_w=w)
+                def rerun(w):
+                    return red(residents, best_sp, self._tables, out_w=w)
 
                 out_w = self._pair_width
-                out_ctx.update(prefix2=_HostCopy(rerun(out_w)), est2=out_w,
-                               red_rerun=rerun)
+                out_ctx.update(pairs={i: _HostCopy(p)
+                                      for i, p in rerun(out_w).items()},
+                               est2=out_w, red_rerun=rerun)
         return out_ctx
 
     def _finish_dp_phase2(self, ctx):
-        B = len(ctx["names"])
         results = ctx["results"]
         if ctx["deferred"]:
             with self.timer.stage("redundancy_sync"):
-                hdr2 = ctx["prefix2"].numpy()    # ONE blocking fetch
-                n2 = int(hdr2[0, 0])
-                if n2 <= ctx["est2"]:
-                    m2 = hdr2[:, 1:n2 + 1]
-                else:
+                # ONE blocking fetch per dp row
+                hdr2 = {i: p.numpy() for i, p in ctx["pairs"].items()}
+                n2 = max(int(h[0, 0]) for h in hdr2.values())
+                if n2 > ctx["est2"]:
                     # prefix overflow: re-run at the next pow2 >= n2
                     # (sticky for later batches) and fetch the wider prefix
                     w = ctx["est2"]
                     while w < n2:
                         w *= 2
                     self._pair_width = max(self._pair_width, w)
-                    hdr2 = ctx["red_rerun"](w).cpu().numpy()
-                    m2 = hdr2[:, 1:n2 + 1]
-                self.total_match_cnt += int(hdr2[1, 0])
+                    hdr2 = {i: p.cpu().numpy()
+                            for i, p in ctx["red_rerun"](w).items()}
+                parts = []
+                for i, h in hdr2.items():
+                    self.total_match_cnt += int(h[1, 0])
+                    part = h[:, 1:int(h[0, 0]) + 1].copy()
+                    part[0] += i * ctx["Bl"]        # row-local read ids
+                    parts.append(part)
+                m2 = np.concatenate(parts, 1)
                 # per-(read, lca) group counts -> tax_cnt dicts
                 tax_cnts: dict = {}
                 from .native_score import available, count_pairs
@@ -899,7 +1083,7 @@ class Classifier:
                 self.taxonomer.finish_with_taxcnt(ctx["deferred"], tax_cnts,
                                                   ctx["qlens"], results)
         return self._records(ctx["names"], ctx["lens1"], ctx["lens2"],
-                             results)
+                             results, ctx.get("local_reads"))
 
     @staticmethod
     def _query_lengths(l1, l2, B):
@@ -915,10 +1099,12 @@ class Classifier:
         return lens1, lens2, qlens
 
     @staticmethod
-    def _records(names, lens1, lens2, read_results):
+    def _records(names, lens1, lens2, read_results, reads=None):
+        """QueryRecords of the batch's reads (of `reads` only, when
+        given: a process of a global mesh reports its own)."""
         out = []
-        for i, name in enumerate(names):
-            qr = QueryRecord(name, int(lens1[i]), int(lens2[i]))
+        for i in range(len(names)) if reads is None else reads:
+            qr = QueryRecord(names[i], int(lens1[i]), int(lens2[i]))
             qr.result = read_results[i]
             out.append(qr)
         return out
@@ -1072,9 +1258,10 @@ class Classifier:
             arr = np.full((B, lmax), ord("N"), np.uint8)
             for i, a in enumerate(grp):
                 arr[i, :lens[i]] = data[a:a + lens[i]]
-            if self._streaming:
+            if self._streaming or self.mesh is not None:
                 # probe the host-resident index ranges (one range on the
-                # device at a time); the host-match arrays stay unbuilt
+                # device at a time; a mesh's host shards); the host-match
+                # arrays stay unbuilt
                 m = self._stream_probe_matches(arr, lens)
             else:
                 r1, j1 = self._up(arr), self._up(lens)
@@ -1110,8 +1297,9 @@ class Classifier:
     def _stream_probe_matches(self, arr, lens):
         """Raw MATCH_DTYPE rows for a batch of rows by probing the
         host-resident index ranges — the raw-match primitive of the
-        long-read chunk path under DB-range streaming (each range is
-        uploaded for its pass and dropped after, as in
+        long-read chunk path under DB-range streaming and on a mesh,
+        whose host shards are the ranges (each range is uploaded to
+        self.device for its pass and dropped after, as in
         _dispatch_group_stream).  AA-boundary range cuts make the
         per-range candidate sets disjoint and the min(2*minHamming, 7)
         cutoff computed in the owning range globally correct (reference
@@ -1124,6 +1312,8 @@ class Classifier:
         qk, qp, qf, qs, qv, _, _ = extract_queries_step(
             r1, j1, ra1=ra1, syncmer=self.syncmer, smer_len=self.smer_len,
             kmer_format=self.kmer_format, win_frac=256)
+        if self._ranges is None:         # a resident mesh's host shards
+            self._ranges = _RangeStream(*self._host_shards, self.device)
         cap = self.cap
         while True:
             acc = new_accumulators(cap, qk.shape[0], self.device)

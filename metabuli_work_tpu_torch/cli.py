@@ -12,7 +12,9 @@ spelling (reference src/MetabuliBase.cpp:47-351).
 The second read file is used with --seq-mode 2 only; --seq-mode 2 with
 one file classifies it unpaired.  classify runs on the CUDA card unless
 --device cpu is given.  --hbm-gb G keeps an index larger than G/2 GiB on
-the host and streams it through the device in range passes.
+the host and streams it through the device in range passes.  --devices
+N classifies over a (dp, db) mesh of N cards (0, the default: all
+visible cards, a mesh when there is more than one; 1: one card).
 """
 
 import argparse
@@ -42,8 +44,10 @@ def _add_classify_args(p):
                         "larger indexes stream in range passes (the "
                         "device-memory analogue of the reference --max-ram). "
                         "0 = keep the whole index resident")
-    p.add_argument("--devices", type=int, default=1,
-                   help="device count (only 1 is ported so far)")
+    p.add_argument("--devices", type=int, default=0,
+                   help="device count for multi-device classify: 0 = all "
+                        "visible cards (mesh mode when >1), 1 = force a "
+                        "single card")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the device step runs (default: the CUDA card)")
 
@@ -80,12 +84,20 @@ def cmd_classify(args):
         batch_size=args.batch_size,
         hbm_budget_gb=args.hbm_budget_gb,
     )
-    if args.devices not in (0, 1):
-        raise NotImplementedError(
-            "multi-device classify is not ported to metabuli_work_tpu_torch "
-            "yet (ROADMAP.md, Queue 1 item 11)")
     t0 = time.time()
-    clf = Classifier(args.dbdir, params, device=args.device)
+    mesh = None
+    if args.devices != 1 and args.device == "cuda":
+        import torch
+
+        avail = torch.cuda.device_count()
+        want = avail if args.devices == 0 else min(args.devices, avail)
+        if want > 1:
+            from .parallel.sharding import make_mesh
+
+            mesh = make_mesh(want)
+            print(f"Multi-chip mesh: dp={mesh.shape['dp']} x "
+                  f"db={mesh.shape['db']}")
+    clf = Classifier(args.dbdir, params, mesh=mesh, device=args.device)
     print(f"Database loaded: {clf.index.size} k-mers ({time.time()-t0:.1f}s)")
 
     t0 = time.time()

@@ -1,14 +1,16 @@
 """Device-ready index layout: packed 512-byte rows + the AA-part hash.
 
 Host-side numpy packing of the sorted index (pack_db_quad,
-pack_db_rows32, build_aa_hash), a disk cache of the packed layout
-(load_or_pack_wide), state_from_numpy, which turns the packed index and
-LCA tables into the tensors the path-DP device step reads,
-match_state_from_numpy, the raw sorted arrays plus bucket tables that
-the host-match step probes instead, and for an index larger than the
-device-memory budget shard_quad_index (contiguous metamer ranges cut at
-AA-part boundaries, one hash geometry) with stream_state_from_numpy (the
-ranges kept on the host, the LCA tables on the device).
+pack_db_rows32, build_aa_hash), a disk cache of the packed layout and of
+its shards (load_or_pack_wide, load_or_shard), state_from_numpy, which
+turns the packed index and LCA tables into the tensors the path-DP
+device step reads, match_state_from_numpy, the raw sorted arrays plus
+bucket tables that the host-match step probes instead, and for an index
+larger than the device-memory budget or cut over a mesh shard_quad_index
+(contiguous metamer ranges cut at AA-part boundaries, one hash geometry)
+with stream_state_from_numpy (the ranges kept on the host, the LCA
+tables on the device) and sharded_state_from_numpy (the shards on the
+mesh's devices, once per device).
 
 Every u32 array is carried on the device as int32 holding the same
 bits (torch has no usable uint32 arithmetic on every backend); the
@@ -200,7 +202,7 @@ def shard_quad_index(quad: np.ndarray, n_shards: int, wide: bool = True):
 # and memory-mapped after (the reference writes its diffIdx/split files
 # once at build time, IndexCreator.cpp:782-866).
 
-LAYOUT_VERSION = 2
+LAYOUT_VERSION = 3
 
 
 def cache_root():
@@ -217,45 +219,74 @@ def _key(parts, geom: str) -> str:
     return h.hexdigest()
 
 
-def load_or_pack_wide(values, db_ef, sp_euk, *, max_chain, max_bytes,
-                      slots=WIDE_SLOTS, row_u32=WIDE_ROW_U32):
-    """Wide layout: (rows [R,128] u32, hash_table, log2_rows, chain,
-    db_m) — from the cache when the same DB + geometry was packed
-    before, else packed fresh and cached.  Cached arrays are read-only
-    mmaps."""
-    geom = f"wide:{max_chain}:{max_bytes}:{slots}:{row_u32}"
+def _cached(parts, geom, make):
+    """(arrays, meta) of the cache entry for (parts, geom): a dict of
+    numpy arrays, mapped copy-on-write from the entry's .npy files, and a
+    JSON-able dict — or make()'s, saved as that entry first (published
+    atomically; a failure to write only skips the cache)."""
     root = cache_root()
-    key = _key((values, db_ef, sp_euk), geom)
-    entry = os.path.join(root, key)
+    entry = os.path.join(root, _key(parts, geom))
     meta_p = os.path.join(entry, "meta.json")
     if os.path.exists(meta_p):
         try:
             with open(meta_p) as f:
                 meta = json.load(f)
-            rows = np.load(os.path.join(entry, "rows.npy"), mmap_mode="r")
-            ht = np.load(os.path.join(entry, "hash.npy"), mmap_mode="r")
-            return (rows, ht, int(meta["log2_rows"]), int(meta["chain"]),
-                    int(meta["db_m"]))
+            arrays = {k: np.load(os.path.join(entry, f"{k}.npy"),
+                                 mmap_mode="c") for k in meta.pop("arrays")}
+            return arrays, meta
         except (OSError, ValueError, KeyError):
-            pass    # unreadable entry: fall through and re-pack
+            pass    # unreadable entry: fall through and make it again
 
-    rows = pack_db_rows32(pack_db_quad(values, db_ef, sp_euk))
-    ht, log2_rows, chain = build_aa_hash(
-        values, max_chain=max_chain, max_bytes=max_bytes,
-        slots=slots, row_u32=row_u32)
-    db_m = len(values)
+    arrays, meta = make()
     try:
         os.makedirs(root, exist_ok=True)
         tmp = tempfile.mkdtemp(dir=root, prefix=".tmp_")
-        np.save(os.path.join(tmp, "rows.npy"), rows)
-        np.save(os.path.join(tmp, "hash.npy"), ht)
+        for k, a in arrays.items():
+            np.save(os.path.join(tmp, f"{k}.npy"), a)
         with open(os.path.join(tmp, "meta.json"), "w") as f:
-            json.dump({"log2_rows": log2_rows, "chain": chain,
-                       "db_m": db_m}, f)
+            json.dump({**meta, "arrays": list(arrays)}, f)
         os.replace(tmp, entry)   # atomic publish; loser of a race loses
     except OSError:
         pass
-    return rows, ht, log2_rows, chain, db_m
+    return arrays, meta
+
+
+def load_or_pack_wide(values, db_ef, sp_euk, *, max_chain, max_bytes,
+                      slots=WIDE_SLOTS, row_u32=WIDE_ROW_U32):
+    """Wide layout: (rows [R,128] u32, hash_table, log2_rows, chain,
+    db_m) — from the cache when the same DB + geometry was packed
+    before, else packed fresh and cached."""
+    def make():
+        ht, log2_rows, chain = build_aa_hash(
+            values, max_chain=max_chain, max_bytes=max_bytes,
+            slots=slots, row_u32=row_u32)
+        return ({"rows": pack_db_rows32(pack_db_quad(values, db_ef, sp_euk)),
+                 "hash": ht},
+                {"log2_rows": log2_rows, "chain": chain,
+                 "db_m": len(values)})
+
+    arrays, meta = _cached((values, db_ef, sp_euk),
+                           f"wide:{max_chain}:{max_bytes}:{slots}:{row_u32}",
+                           make)
+    return (arrays["rows"], arrays["hash"], int(meta["log2_rows"]),
+            int(meta["chain"]), int(meta["db_m"]))
+
+
+def load_or_shard(values, db_ef, sp_euk, n_shards):
+    """shard_quad_index of the packed DB into n_shards — from the cache
+    when the same DB was cut into as many shards before (a streamed or
+    mesh classifier of another process or sequence mode), else cut fresh
+    and cached."""
+    def make():
+        quads, hts, log2, chain, counts = shard_quad_index(
+            pack_db_quad(values, db_ef, sp_euk), n_shards)
+        return ({"quads": quads, "hts": hts, "counts": counts},
+                {"log2_rows": log2, "chain": chain})
+
+    arrays, meta = _cached((values, db_ef, sp_euk), f"shards:{n_shards}",
+                           make)
+    return (arrays["quads"], arrays["hts"], int(meta["log2_rows"]),
+            int(meta["chain"]), arrays["counts"])
 
 
 def _as_i32(a, device):
@@ -264,7 +295,7 @@ def _as_i32(a, device):
     if a.dtype == np.uint32:
         a = a.view(np.int32)
     a = a.astype(np.int32, copy=False)
-    if not a.flags.writeable:      # cached mmaps are read-only
+    if not a.flags.writeable:
         a = a.copy()
     return torch.from_numpy(a).to(device)
 
@@ -305,6 +336,28 @@ def stream_state_from_numpy(quads, hash_tables, hash_log2_rows, hash_chain,
         "euler": _as_i32(euler, device),
         "ef_node": _as_i32(ef_node, device),
     }
+
+
+def sharded_state_from_numpy(quads, hash_tables, hash_log2_rows, hash_chain,
+                             depth, lift, euler, ef_node, mesh,
+                             resident=True):
+    """State of an index cut into shards over a (dp, db) mesh
+    (parallel/sharding.Mesh): the shards on the HOST as in
+    stream_state_from_numpy (what a streamed mesh uploads range by range
+    and what a read beyond the row cap probes); with resident, "cells":
+    cells[i][c] = (quad, hash) of shard c on the device of cell (i, c);
+    "tables": {device: (euler, lca_depth, lca_lift)}.  Shards and tables
+    are uploaded once per distinct device: cells that share a device
+    share the tensors, so device memory does not grow with dp."""
+    st = stream_state_from_numpy(quads, hash_tables, hash_log2_rows,
+                                 hash_chain, depth, lift, euler, ef_node,
+                                 "cpu")
+    st["tables"] = {d: (_as_i32(euler, d), _as_i32(depth, d),
+                        _as_i32(lift, d)) for d in mesh.local_devices()}
+    if resident:
+        st["cells"] = mesh.place(lambda c, d: (
+            st["stream_quads"][c].to(d), st["stream_hts"][c].to(d)))
+    return st
 
 
 def match_state_from_numpy(values, taxids, species, bucket_pair, aa_lo,

@@ -1,6 +1,7 @@
-"""The torch package stands alone: no module of it, and not
-chip_smoke.py, imports jax or the JAX package; and its entry points
-refuse to run without a card unless the CPU is asked for."""
+"""The torch package stands alone: no module of it (parallel/ included),
+and neither chip_smoke.py nor the distributed test's worker, imports jax
+or the JAX package; and its entry points refuse to run without a card
+unless the CPU is asked for."""
 
 import ast
 import os
@@ -13,10 +14,17 @@ PKG = os.path.join(REPO, "metabuli_work_tpu_torch")
 
 
 def _sources():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"),
+           os.path.join(REPO, "tests", "torch_distributed_worker.py")]
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return out
+
+
+def test_sources_cover_the_parallel_package():
+    rel = {os.path.relpath(p, REPO) for p in _sources()}
+    for f in ("sharding.py", "distributed.py", "scaling.py"):
+        assert os.path.join("metabuli_work_tpu_torch", "parallel", f) in rel
 
 
 def _imported_modules(path):

@@ -18,6 +18,7 @@ from metabuli_work_tpu_torch import cli as tcli
 from metabuli_work_tpu_torch.classify.pipeline import Classifier, ClassifyParams
 from metabuli_work_tpu_torch.index.builder import build_database as tbuild
 from metabuli_work_tpu_torch.index.format import load_index as tload
+from metabuli_work_tpu_torch.parallel.sharding import make_mesh
 
 from torch_port_db import (build_db, simulate_pairs, simulate_reads,
                            write_inputs, write_reads)
@@ -183,12 +184,12 @@ def test_unported_configurations_raise(dbs, monkeypatch):
     with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
         Classifier(jdb, ClassifyParams(**{**PARAMS, "em": True}),
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        Classifier(jdb, ClassifyParams(**PARAMS), mesh=object(), device="cpu")
     # the flows this test used to refuse now run
     for kw in (dict(seq_mode=2), dict(seq_mode=3), dict(min_cons_cnt=1),
                dict(hbm_budget_gb=1.0)):
         Classifier(jdb, ClassifyParams(**{**PARAMS, **kw}), device="cpu")
+    assert Classifier(jdb, ClassifyParams(**PARAMS),
+                      mesh=make_mesh(2, devices=["cpu"] * 2)).mesh is not None
     monkeypatch.setenv("METABULI_DEVICE_ASSIGN", "1")
     assert Classifier(jdb, ClassifyParams(**PARAMS),
                       device="cpu")._device_assign
