@@ -16,9 +16,11 @@
    two launches over the same lanes with different W); checks that each
    case went to the variant its cap selects;
 4. builds (or loads from ~/.cache) a syncmer DB of 8 genomes x 4 Mb in 2
-   genera and drives seven paths on it through Classifier(device="cuda")
+   genera and drives its paths on it through Classifier(device="cuda")
    and classify_file, each after a one-batch warm-up, each with the
-   kernels' launch counts set to 0 just before and read just after:
+   kernels' launch counts set to 0 just before and read just after; each
+   path prints the reader it read with (the native C++ reader unless its
+   library did not build):
    - single-end: 16,384 reads of 150 bp (1% errors, half reverse-
      complemented), batch 1024;
    - paired-end (--seq-mode 2): 8,192 pairs of 2 x 150 bp, insert
@@ -60,6 +62,32 @@
      prints reads/s of its own workload on 1, 2 and 4 of the cells (on
      one card the cells run one after another: the cost of the
      mechanism, not a speed-up).
+   after those, so that every earlier path runs as it did before them:
+   - reader: the single-end reads through the native reader and
+     through the Python reader on one classifier, three times each in
+     turns, equal read for read, with the input stage's ms a batch, the
+     dispatch stage's ms a call and reads/s of each run;
+   - reference-format (diffIdx) and reference-format (deltaIdx.mtbl):
+     the smoke index written as a database of the reference binary (the
+     port's export_reference_format, or the 96-bit stream of its
+     encode_metamer_deltas; db.parameters and a taxonomyDB blob, no
+     db.meta.json), imported by load_index (the windowed decode into the
+     directory's memmap cache), then the single-end reads through
+     Classifier(dir); every read must equal the native-layout single-end
+     run's (tax_cnt and top_species included); prints the export and
+     import seconds, the bytes of the delta stream and reads/s;
+   - em: the single-end reads with em=True (made with
+     METABULI_DEVICE_ASSIGN=1 set, which --em overrides: no batch may
+     take the device-assign dispatch), then run_em; the species score
+     lists of the first 256 reads must equal the CPU run's; prints the
+     EM iterations and seconds;
+   - cli (no kernel count of its own: a subprocess): `python -m
+     metabuli_work_tpu_torch.cli classify` of the first 4,096 reads as
+     FASTQ on the diffIdx reference DB with --em, --validate-input,
+     --profile-dir and the flags the JAX CLI accepts and ignores; exit 0,
+     classifications byte-equal to the em run's, the EM files and a
+     trace written; then convertDB, validatedb and printDeltaIdx --limit
+     5 on that directory, exit 0, the five values the index's first;
    For every path it checks that the plain DP never ran on the card,
    that every launch at cap <= 32 went to the warp variant, that >= 95%
    of reads land on their source species or genus, and that a subset
@@ -119,6 +147,8 @@ MID_LONG = (24_000, 36_000)      # rows >= 2^14 nt: the 7-column layout
 VERY_LONG = 150_000              # beyond the 64-kb row cap: chunked
 N_HOST_MATCH = 4096
 N_DIST = 4096                    # reads of the two-process path
+READER_TURNS = 3                 # runs of the single-end reads per reader
+N_CLI = 4096                     # reads of the CLI phase
 STREAM_GB = 0.25                 # budget that cuts the index into 4 ranges
 OVER_CAP = 66_000                # a little beyond the 64-kb row cap
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate
@@ -394,6 +424,84 @@ def write_fasta(path, reads):
             f.write(f">r{i}\n{r.tobytes().decode()}\n")
 
 
+def write_fastq(path, reads):
+    with open(path, "w") as f:
+        for i, r in enumerate(reads):
+            f.write(f"@r{i}\n{r.tobytes().decode()}\n+\n{'I' * len(r)}\n")
+
+
+# ---------------------------------------------------------------- ref. DBs
+def write_db_parameters(path, meta):
+    """The reference's db.parameters (key<TAB>value lines) for `meta`."""
+    with open(path, "w") as f:
+        for key, k in (("DB_name", "db_name"), ("Reduced_alphabet",
+                                                "reduced_aa"),
+                       ("Accession_level", "accession_level"),
+                       ("Mask_mode", "mask_mode"), ("Mask_prob", "mask_prob"),
+                       ("Skip_redundancy", "skip_redundancy"),
+                       ("Syncmer", "syncmer"), ("Syncmer_len", "smer_len"),
+                       ("Kmer_format", "kmer_format")):
+            v = meta.get(k, "smoke" if k == "db_name" else 0)
+            f.write(f"{key}\t{int(v) if isinstance(v, bool) else v}\n")
+
+
+def write_taxonomy_blob(path, tax):
+    """A reference taxonomyDB blob of `tax` (TaxonomyWrapper::serialize,
+    version 3, internalTaxIdUsed set so the internal ids are kept; node d
+    holds internal id d + 1; the E/L/H/M lookup tables, which a reader
+    skips, are zeros)."""
+    n = len(tax.parent)
+    max_nodes = n - 1
+    strings, at = [], {}
+
+    def sidx(s):
+        if s not in at:
+            at[s] = len(strings)
+            strings.append(s)
+        return at[s]
+
+    node = np.dtype([("id", "<i4"), ("taxId", "<i4"), ("parentTaxId", "<i4"),
+                     ("pad", "<i4"), ("rankIdx", "<u8"), ("nameIdx", "<u8")])
+    nodes = np.zeros(max_nodes, dtype=node)
+    for i in range(1, n):
+        nodes[i - 1] = (i - 1, i, int(tax.parent[i]), 0,
+                        sidx(tax.rank_of(i)), sidx(tax.name_of(i)))
+    k = int(np.floor(np.log2(max(2 * max_nodes, 2)))) + 1
+    chars = b"".join(s.encode() + b"\0" for s in strings)
+    offsets = np.concatenate([[0], np.cumsum([len(s.encode()) + 1
+                                              for s in strings])])
+    with open(path, "wb") as f:
+        for a in (np.array([3], "<i4"), np.array([1, max_nodes], "<u8"),
+                  np.array([n - 1], "<i4"), nodes,
+                  np.arange(-1, max_nodes, dtype="<i4"),
+                  np.asarray(tax.int2orig, "<i4"),
+                  np.zeros(5 * max_nodes + 2 * max_nodes * k, "<i4"),
+                  np.array([len(strings), len(chars)], "<u4"),
+                  offsets.astype("<u4")):
+            f.write(a.tobytes())
+        f.write(chars)
+
+
+def write_reference_db(d, index, layout):
+    """`index` as a database of the reference binary in directory d:
+    diffIdx/info/split (the port's export_reference_format) or
+    deltaIdx.mtbl (the 96-bit stream of its encode_metamer_deltas), with
+    db.parameters and a taxonomyDB blob and no db.meta.json.  Returns the
+    bytes of the delta stream."""
+    from metabuli_work_tpu_torch.index.delta import encode_metamer_deltas
+    from metabuli_work_tpu_torch.index.format import export_reference_format
+
+    os.makedirs(d)
+    if layout == "diffIdx":
+        export_reference_format(d, index)
+    else:
+        encode_metamer_deltas(index.values, index.taxids).astype(
+            "<u2").tofile(os.path.join(d, layout))
+    write_db_parameters(os.path.join(d, "db.parameters"), index.meta)
+    write_taxonomy_blob(os.path.join(d, "taxonomyDB"), index.taxonomy)
+    return os.path.getsize(os.path.join(d, layout))
+
+
 def tuples(results):
     return [(q.result.is_classified, q.result.classification,
              float(q.result.score)) for q in results]
@@ -518,7 +626,8 @@ def drive(dp_cuda, clf, run):
             "launches": dp_cuda.launches, "plain": dp_cuda.plain_cuda_calls,
             "counts": variant_counts(dp_cuda),
             "dispatches": clf.timer.counts["dispatch"],
-            "peak": torch.cuda.max_memory_allocated(), "base": base}
+            "peak": torch.cuda.max_memory_allocated(), "base": base,
+            "reader": clf.reader}
 
 
 def check_path(name, r, n_reads, src, dp_cuda, card, unit="reads"):
@@ -536,7 +645,8 @@ def check_path(name, r, n_reads, src, dp_cuda, card, unit="reads"):
         by_cap[k] = by_cap.get(k, 0) + 1
     print(f"{name}: path DP launches by shape {by_cap}; warp variant "
           f"{counts['warp']}, block variant {counts['block']}; "
-          f"{r['dispatches']} dispatches")
+          f"{r['dispatches']} dispatches; read with the {r['reader']} "
+          f"reader")
     assert counts["warp"] == n_small, \
         f"{name}: a launch at cap <= 32 did not go to the warp variant"
     assert counts["block"] == r["launches"] - n_small
@@ -652,6 +762,202 @@ def profile_path(name, run, n_reads, card, n_batches=None):
           f" s in {sum(e.count for e in waits)} calls, under the profiler")
 
 
+def reader_phase(clf, fa, reads, card):
+    """The single-end reads through the native reader and through the
+    Python reader on one classifier, READER_TURNS runs each in turns:
+    equal read for read; the input stage's ms a batch and reads/s of
+    each run, with its dispatch stage's ms a call (the two readers side
+    by side, free of the spread between runs of the whole script)."""
+    from metabuli_work_tpu_torch.io import native_reader
+
+    assert native_reader.available(), \
+        "the native reader's library did not build"
+    got = {}
+    available = native_reader.available
+    for rd in ("native", "python") * READER_TURNS:
+        clf.timer.totals.clear()
+        clf.timer.counts.clear()
+        # the Python reader runs when the native library is missing
+        native_reader.available = available if rd == "native" \
+            else (lambda: False)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = clf.classify_file(fa("reads.fna"))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            native_reader.available = available
+        assert clf.reader == rd
+        tm = clf.timer
+        got.setdefault(rd, []).append(
+            (full_tuples(res), 1e3 * tm.totals["input"] / tm.counts["input"],
+             len(reads) / dt,
+             1e3 * tm.totals["dispatch"] / tm.counts["dispatch"]))
+    same_as("reader", "the Python reader's run (tax_cnt and top_species "
+            "included)", got["native"][0][0], got["python"][0][0])
+    for rd, runs_ in got.items():
+        print(f"reader: {rd} reader, {len(reads)} reads in batches of "
+              f"{clf.params.batch_size}: input "
+              f"{', '.join(f'{r[1]:.2f}' for r in runs_)} ms a batch, "
+              f"dispatch {', '.join(f'{r[3]:.1f}' for r in runs_)} ms a "
+              f"call, {', '.join(f'{r[2]:.1f}' for r in runs_)} reads/s "
+              f"({READER_TURNS} runs, in turns with the other reader); on "
+              f"{card}")
+
+
+def reference_phases(dp_cuda, index, classifier_at, fa, runs, src, card):
+    """Both reference layouts of the smoke index: written (export), read
+    back by load_index (the windowed decode into <dir>/.import_cache),
+    then classified through Classifier(dir) on the card, which maps that
+    cache; every read equal to the native-layout single-end run.
+    Returns {layout: directory}."""
+    from metabuli_work_tpu_torch.index.format import load_index
+
+    se = runs["single-end"]
+    dirs = {}
+    for layout in ("diffIdx", "deltaIdx.mtbl"):
+        name = f"reference-format ({layout})"
+        d = dirs[layout] = fa(f"refdb_{layout.split('.')[0]}")
+        t0 = time.perf_counter()
+        n_bytes = write_reference_db(d, index, layout)
+        t_export = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        imported = load_index(d)
+        t_import = time.perf_counter() - t0
+        for k in ("values", "taxids", "species"):
+            assert np.array_equal(getattr(imported, k), getattr(index, k)), \
+                f"{name}: imported {k} differ from the index's"
+        del imported
+        t0 = time.perf_counter()
+        clf = classifier_at(d)
+        setup = time.perf_counter() - t0
+        assert isinstance(clf.index.values, np.memmap)
+        clf.classify_file(fa("warm.fna"))
+        r = runs[name] = drive(dp_cuda, clf,
+                               lambda: clf.classify_file(fa("reads.fna")))
+        assert r["launches"] > 0, f"{name}: no path-DP launch"
+        check_path(name, r, N_READS, src, dp_cuda, card)
+        same_as(name, "the native-layout single-end run (tax_cnt and "
+                "top_species included)", full_tuples(r["results"]),
+                full_tuples(se["results"]))
+        print(f"{name}: export {t_export:.2f} s ({n_bytes} bytes of "
+              f"{layout}, {index.size} entries), import (windowed decode "
+              f"into the memmap cache) {t_import:.2f} s, classifier setup "
+              f"from the mapped cache {setup:.2f} s; "
+              f"{N_READS / r['dt']:.1f} reads/s against the native "
+              f"layout's {N_READS / se['dt']:.1f}; {r['counts']['warp']} "
+              f"warp launches; on {card}")
+        stage_table(name, clf, card)
+        clf = None
+        torch.cuda.empty_cache()
+    return dirs
+
+
+def em_phase(dp_cuda, classifier, fa, runs, src, card):
+    """The single-end reads with em=True on the card (made with
+    METABULI_DEVICE_ASSIGN=1 set, which --em overrides: no batch may take
+    the device-assign dispatch), then run_em; the species score lists of
+    the first N_CPU_CHECK reads equal to the CPU run's."""
+    from metabuli_work_tpu_torch.classify.em import run_em
+
+    os.environ["METABULI_DEVICE_ASSIGN"] = "1"
+    try:
+        clf = classifier(seq_mode=1, batch_size=BATCH, em=True)
+        cpu = classifier("cpu", seq_mode=1, batch_size=N_CPU_CHECK, em=True)
+    finally:
+        del os.environ["METABULI_DEVICE_ASSIGN"]
+    assert not clf._device_assign and not cpu._device_assign
+
+    def refuse(*a, **k):
+        raise AssertionError("em: a batch took the device-assign dispatch")
+
+    clf._dispatch_batch_full = refuse
+    clf.classify_file(fa("warm.fna"))
+    r = runs["em"] = drive(dp_cuda, clf,
+                           lambda: clf.classify_file(fa("reads.fna")))
+    assert r["launches"] > 0
+    check_path("em", r, N_READS, src, dp_cuda, card)
+    stage_table("em", clf, card)
+    got_cpu = cpu.classify_file(fa("cpu.fna"))
+    scores = lambda res: [(t, list(q.result.species_scores))
+                          for q, t in zip(res, full_tuples(res))]
+    same_as("em CPU check", "the CPU run (species score lists, tax_cnt and "
+            "top_species included)", scores(r["results"][:N_CPU_CHECK]),
+            scores(got_cpu))
+    out = fa("em_out")
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    st = run_em(r["results"], clf, out, "em")
+    t_em = time.perf_counter() - t0
+    n_sc = sum(bool(q.result.species_scores) for q in r["results"])
+    print(f"em: {N_READS} reads, {n_sc} with species scores, "
+          f"{N_READS / r['dt']:.1f} reads/s (the plain single-end run "
+          f"{N_READS / runs['single-end']['dt']:.1f}); no device-assign "
+          f"dispatch with METABULI_DEVICE_ASSIGN=1 set; run_em "
+          f"{t_em:.3f} s, {st['iterations']} iterations over "
+          f"{st['species']} species, {st['mapped']} mapped reads; on {card}")
+
+
+def cli_phase(fa, reads, ref_dir, em_results, taxonomy, card):
+    """`python -m metabuli_work_tpu_torch.cli classify` on the first
+    N_CLI reads (FASTQ) and the diffIdx reference DB, on the card, with
+    --em, --validate-input, --profile-dir and the flags the JAX CLI
+    accepts and ignores; its classifications equal the em phase's (the
+    API run) on the same reads, the EM files and a trace exist.  Then
+    convertDB, validatedb and printDeltaIdx on that directory."""
+    from metabuli_work_tpu_torch.report.reporter import write_classifications
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cli = [sys.executable, "-m", "metabuli_work_tpu_torch.cli"]
+
+    def run(argv, timeout=900):
+        t0 = time.perf_counter()
+        p = subprocess.run(cli + argv, capture_output=True, text=True,
+                           cwd=root, timeout=timeout)
+        dt = time.perf_counter() - t0
+        shown = argv[:1] + [os.path.basename(a) for a in argv[1:]]
+        print(f"cli: {' '.join(shown)} -> exit {p.returncode} in {dt:.1f} s")
+        assert p.returncode == 0, f"cli {argv[0]}:\n{p.stdout[-3000:]}" \
+                                  f"{p.stderr[-3000:]}"
+        return p.stdout, dt
+
+    write_fastq(fa("cli.fq"), reads[:N_CLI])
+    out, trace = fa("cli_out"), fa("cli_trace")
+    stdout, dt = run(["classify", fa("cli.fq"), ref_dir, out, "job",
+                      "--seq-mode", "1", "--em", "--validate-input",
+                      "--profile-dir", trace, "--threads", "8", "--max-ram",
+                      "64", "--hamming-margin", "0", "--match-per-kmer", "4",
+                      "--batch-size", str(BATCH), "--min-score", "0.15",
+                      "--min-sp-score", "0.5"])
+    for line in stdout.splitlines():
+        if not line.startswith("Processed read count"):
+            print(f"  {line}")
+    write_classifications(fa("api_classifications.tsv"),
+                          em_results[:N_CLI], taxonomy)
+    with open(fa("api_classifications.tsv"), "rb") as a, \
+            open(os.path.join(out, "job_classifications.tsv"), "rb") as b:
+        assert a.read() == b.read(), \
+            "cli: the classifications differ from the API run's"
+    em_files = [f"job{x}" for x in ("_mapping_results.txt", "_EM_report.tsv",
+                                    "_EM+reclassify_results.tsv",
+                                    "_EM+reclassify_report.tsv")]
+    for f in em_files:
+        assert os.path.getsize(os.path.join(out, f)) > 0, f
+    traces = [os.path.join(trace, f) for f in os.listdir(trace)
+              if f.endswith(".json")]
+    assert traces, "cli: --profile-dir wrote no trace"
+    print(f"cli: classify of {N_CLI} FASTQ reads on the reference-format DB "
+          f"(with --profile-dir) took {dt:.1f} s with process start; "
+          f"classifications identical to the API run's; EM files "
+          f"{em_files}; trace {os.path.basename(traces[0])} "
+          f"({os.path.getsize(traces[0]) / 1e6:.1f} MB); on {card}")
+    run(["convertDB", ref_dir])
+    run(["validatedb", ref_dir])
+    stdout, _ = run(["printDeltaIdx", ref_dir, "--limit", "5"])
+    return stdout.split()
+
+
 def dist_worker(argv):
     """One process of the distributed path: rank, port, reads, warm-up
     reads, output JSON (see the module docstring)."""
@@ -694,6 +1000,7 @@ def dist_worker(argv):
                    "merged": clf.mesh_merged_bytes - m0,
                    "max_err": max_err}, f)
     print(f"distributed process {rank}: cells {[str(d) for d in mine]}, "
+          f"read with the {r['reader']} reader, "
           f"{len(r['results'])} reads in {r['dt']:.3f} s, "
           f"{r['launches']} path DP launches, {len(r['first'])} launch "
           f"inputs exact against the plain version, peak device memory "
@@ -1208,6 +1515,24 @@ def main(argv=()):
               f"size ({time.perf_counter() - t0:.1f} s); cells that share a "
               f"card run one after another: the mechanism's cost, not a "
               f"speed-up; on {card}")
+
+        # ------ the native reader, reference-format DBs, --em, the CLI
+        # (after every earlier path, so those run as they did before)
+        clf = classifier(seq_mode=1, batch_size=BATCH, **short)
+        clf.classify_file(fa("warm.fna"))
+        reader_phase(clf, fa, reads, card)
+        clf = None
+        torch.cuda.empty_cache()
+        ref_dirs = reference_phases(
+            dp_cuda, index, lambda d: Classifier(d, ClassifyParams(
+                seq_mode=1, batch_size=BATCH, **short), device="cuda"),
+            fa, runs, src, card)
+        em_phase(dp_cuda, lambda device="cuda", **kw: classifier(
+            device, **kw, **short), fa, runs, src, card)
+        head = cli_phase(fa, reads, ref_dirs["diffIdx"],
+                         runs["em"]["results"], index.taxonomy, card)
+        assert head == [str(v) for v in index.values[:5]], head
+        torch.cuda.empty_cache()
 
     # ------------------------------- main-path parity and kernel timings
     # the plain version runs once per long-read shape (seconds a call)

@@ -1,3 +1,4 @@
 """PyTorch + CUDA port of metabuli_work_tpu (the JAX package beside it,
-which stays the reference).  Single-end classify on a resident,
-single-device index; see ROADMAP.md for what is still to come."""
+which stays the reference): build, and classify in all three sequence
+modes on one card or a (dp, db) mesh, on native or reference-format
+databases, with --em; see ROADMAP.md for what is still to come."""

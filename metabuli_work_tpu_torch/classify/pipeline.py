@@ -50,8 +50,13 @@ one device and a mesh: a single device is a mesh of one row here, and a
 mesh's stats header is reduced over its rows (across processes too)
 before the retry ladder reads it.
 
---em raises NotImplementedError naming the ROADMAP.md item that brings
-it.
+Under --em every read keeps its top species scores (ReadResult.
+species_scores) for classify/em.run_em, so the device-assign flow, which
+carries none, stays off.
+
+classify_file reads with the native C++ batch reader
+(io/native_reader.py) when its library builds, else with the Python
+reader (io/fasta.py); Classifier.reader names the one that ran.
 """
 
 import math
@@ -153,12 +158,6 @@ def _est_update(cur: int, n: int, step: int, floor: int) -> int:
     return cur
 
 
-def _not_ported(what, item):
-    return NotImplementedError(
-        f"{what} is not ported to metabuli_work_tpu_torch yet "
-        f"(ROADMAP.md, {item})")
-
-
 class _HostCopy:
     """Device->host copy of a tensor that lands asynchronously: a
     non-blocking copy into pinned memory plus a CUDA event (on the CPU
@@ -242,6 +241,22 @@ class _RangeStream:
                 "copy_s": self.copy_ms / 1e3}
 
 
+class _FullReads:
+    """Whole reads of a file by index, in increasing order, from the
+    Python reader: one pass over the file however many are asked for."""
+
+    def __init__(self, path):
+        self._path, self._it, self._at, self._seq = path, None, -1, None
+
+    def get(self, i):
+        if self._it is None:
+            self._it = read_seq_file(self._path)
+        while self._at < i:
+            self._seq = next(self._it).seq
+            self._at += 1
+        return self._seq
+
+
 class Classifier:
     def __init__(self, db_dir, params: ClassifyParams, mesh=None,
                  device=None):
@@ -260,8 +275,6 @@ class Classifier:
 
     def _init_from_index(self, index: KmerIndex, params: ClassifyParams,
                          mesh=None, device=None):
-        if params.em:
-            raise _not_ported("--em", "Queue 1 item 13")
         # multi-device: a (dp, db) parallel.sharding.Mesh; its first
         # local row's device is the classifier's device.  _grid is the
         # dp-row layout the host finish walks: the mesh, or one row of
@@ -313,6 +326,7 @@ class Classifier:
         self.total_match_cnt = 0
         self.timer = StageTimer()
         self._match_state = None        # host-match arrays, at first use
+        self.reader = None              # "native" | "python", last file
         self.full_retries = {}          # device-assign retries by rung
         self._fetch_estimate = 1 << 17  # match rows fetched eagerly
         self._path_estimate = 1 << 14   # emitted-path rows fetched eagerly
@@ -343,11 +357,12 @@ class Classifier:
         # the device so only [6, B+1] records come home.  Off unless
         # pinned: it adds operators to enqueue, and the host enqueue is
         # what bounds a batch (PERF.md section 5).  Streaming keeps the
-        # host-scoring flow.
+        # host-scoring flow, and so does --em: the flow carries no
+        # per-read species scores.
         self._device_assign = (
             os.environ.get("METABULI_DEVICE_ASSIGN") == "1"
             and self.use_device_dp and not self._streaming
-            and self.mesh is None)
+            and self.mesh is None and not p.em)
         # paths of one (read, species) run the device-assign step
         # combines; a longer run triggers a sticky doubled re-run
         self._combine_k = 8
@@ -595,14 +610,15 @@ class Classifier:
                                  self.smer_len, win_frac, lmax2=lmax2)
             return self._dp_ctx(names, a1, a2, l1, l2_c, cap,
                                 {0: (packed_hdr, resident)}, B,
-                                r1.shape[1], lmax2, part_w)
+                                r1.shape[1], lmax2, part_w, path_block)
 
     def _dp_ctx(self, names, a1, a2, l1, l2, cap, outs, Bl, lmax1, lmax2,
-                part_w):
+                part_w, path_block):
         """What _finish_dp_phase1 needs of a dispatched batch: per dp row
         (outs = {row: (packed_hdr, resident)}, Bl reads a row) the paths,
         the resident tensors and the copy that carries the stats header
-        (column 0) and the estimated path prefix home together."""
+        (column 0) and the estimated path prefix home together; and the
+        emission block the batch was dispatched with."""
         width = next(iter(outs.values()))[0].shape[1] - 1
         est = min(self._path_estimate, width)
         rows = {i: {"paths": ph, "prefix": _HostCopy(ph[:, :est + 1]),
@@ -612,7 +628,7 @@ class Classifier:
         return {"dp": True, "names": names, "l1": l1, "l2": l2, "cap": cap,
                 "a1": a1, "a2": a2, "rows": rows, "Bl": Bl,
                 "path_width": width, "est": est, "n_quot": n_quot,
-                "part_w": part_w}
+                "part_w": part_w, "path_block": path_block}
 
     # ------------------------------------------------------------------ #
     # multi-device: the (dp, db) mesh
@@ -692,7 +708,7 @@ class Classifier:
                                  self.smer_len, win_frac, lmax2=lm2)
             return self._dp_ctx(names, a1, a2, l1, l2_c, cap, outs,
                                 B_pad // self.mesh.shape["dp"], lm1, lm2,
-                                part_w)
+                                part_w, path_block)
 
     # ------------------------------------------------------------------ #
     # DB-range streaming
@@ -766,7 +782,7 @@ class Classifier:
                 ctxs.append(self._dp_ctx(
                     p["names"], p["a1"], p["a2"], p["l1"], p["l2"], cap,
                     {0: (packed_hdr, resident)}, p["B"], p["lm1"], p["lm2"],
-                    part_w))
+                    part_w, path_block))
         return ctxs
 
     def _stream_group_size(self) -> int:
@@ -951,9 +967,12 @@ class Classifier:
             elif int(st[0]) > 0 and eff_cap < self._cap_ceiling:
                 eff_cap = min(eff_cap * 2, self._cap_ceiling)
                 self.cap = max(self.cap, eff_cap)
-            # blocked-emission lane overflow: doubled sticky block
+            # blocked-emission lane overflow: doubled sticky block, from
+            # the value this batch ran with (the batches queued behind
+            # it ran with the same one: one doubling serves them all)
             elif int(st[3]) > 0:
-                self._path_block *= 2
+                self._path_block = max(self._path_block,
+                                       ctx["path_block"] * 2)
             # path-compaction width overflow: doubled static width
             elif int(st[1]) > ctx["path_width"]:
                 self._path_width = max(self._path_width,
@@ -1013,9 +1032,7 @@ class Classifier:
             qlens = np.pad(qlens, (0, B_pad - B))
             deferred = self.taxonomer.score_paths(pa, qlens, results)
 
-        # the reads of this process's rows (all of them in one process)
-        local = [r for i in self._grid.local_rows
-                 for r in range(i * Bl, min((i + 1) * Bl, B))]
+        local = self._local_reads(B)
         out_ctx = {"names": names, "lens1": lens1, "lens2": lens2,
                    "results": results, "deferred": deferred, "qlens": qlens,
                    "Bl": Bl, "local_reads": local}
@@ -1346,51 +1363,139 @@ class Classifier:
         return m
 
     def classify_file(self, path1, path2=None, progress=None):
-        p2 = path2 if self.params.seq_mode == 2 else None
+        """Classify a read file (and its mate file under --seq-mode 2),
+        read with the native C++ batch reader (native/seqreader.cpp)
+        when its library builds, else with the Python reader
+        (io/fasta.py); self.reader records which ("native" | "python")."""
+        from ..io import native_reader
 
-        def _pad_iter():
-            it = self._read_batches(path1, p2)
+        p2 = path2 if self.params.seq_mode == 2 else None
+        self.reader = "native" if native_reader.available() else "python"
+        it = (self._read_batches_native(path1, p2)
+              if self.reader == "native"
+              else self._read_batches_padded(path1, p2))
+
+        def _timed():
             while True:
                 with self.timer.stage("input"):     # parse + mask + pad
                     nxt = next(it, None)
-                    if nxt is None:
-                        return
-                    names, s1, s2 = nxt
-                    b1, bl1 = self._pad_batch(s1)
-                    b2 = bl2 = None
-                    if any(x is not None for x in s2):
-                        b2, bl2 = self._pad_batch(s2)
-                yield names, b1, bl1, b2, bl2
+                if nxt is None:
+                    return
+                yield nxt
 
-        batches = _pad_iter()
+        batches = _timed()
 
         # long-read mode: reads beyond the row cap are pulled out of the
         # batch pass (length zeroed -> unclassified placeholder) and
-        # reprocessed whole via chunked extraction afterwards
-        long_ids: dict = {}
+        # reprocessed whole via chunked extraction afterwards, by the
+        # process that reports them, at their place in its results
+        long_ids: dict = {}      # read index in the file -> in the results
         if self.params.seq_mode == 3:
             cap_rows = self.LONG_ROW_CAP
 
             def _split_long(it):
-                base = 0
+                base = local_base = 0
                 for names, a1, l1, a2, l2 in it:
+                    local = self._local_reads(len(names))
                     l1 = np.asarray(l1)
                     over = np.nonzero(l1 > cap_rows)[0]
                     if len(over):
                         l1 = l1.copy()
-                        for i in over:
-                            long_ids[base + int(i)] = True
-                            l1[i] = 0
+                        l1[over] = 0
+                        at = {r: k for k, r in enumerate(local)}
+                        for i in over.tolist():
+                            if i in at:
+                                long_ids[base + i] = local_base + at[i]
                     yield names, a1, l1, a2, l2
                     base += len(names)
+                    local_base += len(local)
 
             batches = _split_long(batches)
         results = self.drive_batches(batches, progress)
         if long_ids:
             for gi, rec in enumerate(read_seq_file(path1)):
                 if gi in long_ids:
-                    results[gi] = self._classify_long_read(rec.name, rec.seq)
+                    results[long_ids[gi]] = self._classify_long_read(
+                        rec.name, rec.seq)
         return results
+
+    def _local_reads(self, B):
+        """Positions, in a batch of B reads, of the reads this process
+        reports: those of its dp rows (all of them in one process)."""
+        Bl = -(-max(B, 1) // self._grid.shape["dp"])
+        return [r for i in self._grid.local_rows
+                for r in range(i * Bl, min((i + 1) * Bl, B))]
+
+    def _read_batches_padded(self, path1, path2=None):
+        """The Python reader's batches as padded rows (masked first)."""
+        for names, s1, s2 in self._read_batches(path1, path2):
+            b1, bl1 = self._pad_batch(s1)
+            b2 = bl2 = None
+            if any(x is not None for x in s2):
+                b2, bl2 = self._pad_batch(s2)
+            yield names, b1, bl1, b2, bl2
+
+    # row width of the native reader's batches (the JAX package's); a
+    # longer read outside --seq-mode 3 gets a wider batch (_widen)
+    _NATIVE_ROW = 4096
+
+    def _read_batches_native(self, path1, path2=None):
+        """Padded-row batches from the native C++ reader (no per-read
+        Python), masked in place under --mask; mate files of different
+        length raise as in _read_batches."""
+        from ..io.native_reader import NativeBatchReader
+
+        B = self.params.batch_size
+        W = self.LONG_ROW_CAP if self.params.seq_mode == 3 \
+            else self._NATIVE_ROW
+        mates = [(path1, NativeBatchReader(path1, B, W), _FullReads(path1))]
+        if path2:
+            mates.append((path2, NativeBatchReader(path2, B, W),
+                          _FullReads(path2)))
+        n_seen = 0
+        for names, a1, l1 in mates[0][1]:
+            rows = [self._widen(a1, l1, mates[0][2], n_seen)]
+            if path2:
+                nxt = next(mates[1][1], None)
+                n2 = len(nxt[0]) if nxt is not None else 0
+                if n2 != len(names):
+                    short, other, n = (path2, path1, n2) if n2 < len(names) \
+                        else (path1, path2, len(names))
+                    raise ValueError(
+                        f"paired read files differ in length: {short} ends "
+                        f"after {n_seen + n} reads, {other} has more")
+                rows.append(self._widen(nxt[1], nxt[2], mates[1][2], n_seen))
+            if self.params.mask_mode:
+                rows = [(mask_ops.mask_batch_rows(a, l, self.params.mask_prob),
+                         l) for a, l in rows]
+            n_seen += len(names)
+            (a1, l1), (a2, l2) = rows[0], rows[1] if path2 else (None, None)
+            yield names, a1, l1, a2, l2
+        if path2 and next(mates[1][1], None) is not None:
+            raise ValueError(
+                f"paired read files differ in length: {path1} ends after "
+                f"{n_seen} reads, {path2} has more")
+
+    def _widen(self, a, lens, full, base):
+        """A native batch whose reads all fit its rows, as the Python
+        reader pads them: the native reader drops the bases beyond the
+        row width, so outside --seq-mode 3 (where such reads take the
+        chunk pass) a longer read is taken whole from the Python reader
+        (`full`, read `base + i` of the file) into a batch as wide as
+        its longest read."""
+        over = np.nonzero(lens > a.shape[1])[0]
+        if not len(over) or self.params.seq_mode == 3:
+            return a, lens
+        seqs = {int(i): full.get(base + int(i)).encode("ascii", "replace")
+                for i in over}
+        lens = lens.copy()
+        for i, b in seqs.items():
+            lens[i] = len(b)
+        wide = np.full((a.shape[0], int(lens.max())), ord("N"), np.uint8)
+        wide[:, :a.shape[1]] = a
+        for i, b in seqs.items():
+            wide[i, :len(b)] = np.frombuffer(b, np.uint8)
+        return wide, lens
 
     # batches between a dispatch and its phase-1 finish (and between
     # phase 1 and phase 2): device work of later batches is queued

@@ -10,11 +10,11 @@ This builder indexes all six frames of every sequence (a superset of
 the reference's Prodigal extended-ORF blocks, see
 ops/encode_np.extract_target_kmers).  ORF prediction, user CDS blocks,
 accession-level labels and resumable builds are not part of this
-package yet (ROADMAP.md).
+package yet (ROADMAP.md, Queue 1 item 15).
 
 Differences from the reference, by design: the index is a plain sorted
 uint64 array + int32 side arrays (device-ready) instead of a 15-bit
-delta stream.
+delta stream; write_reference_format writes that stream beside it.
 
 Out-of-core: sequences are processed in flush rounds bounded by
 ``max_ram_gb`` and spilled to temporary .npy runs that are k-way merged,
@@ -31,7 +31,7 @@ from ..io.fasta import read_fasta
 from ..ops.encode_np import extract_target_kmers
 from ..ops import mask as mask_ops
 from ..taxonomy import Taxonomy
-from .format import KmerIndex, save_index
+from .format import KmerIndex, export_reference_format, save_index
 
 
 def load_acc2taxid(path):
@@ -314,12 +314,15 @@ def build_database(
     mask_mode: int = 1,
     mask_prob: float = 0.9,
     max_ram_gb: float = 32.0,
+    write_reference_format: bool = False,
     db_name: str = "",
     threads: int = 1,
 ):
     """End-to-end `build` command (reference workflow/build.cpp:32-131)
     with whole-sequence 6-frame extraction.
 
+    write_reference_format: also write the reference's diffIdx/info/split
+        files (index/format.export_reference_format).
     threads: worker processes for masking/extraction (0 = all cores;
     the reference's OpenMP batch farm, IndexCreator.cpp:1029-1030)."""
     taxonomy = Taxonomy.from_taxdump(taxdump_dir)
@@ -341,5 +344,7 @@ def build_database(
     with open(os.path.join(db_dir, "acc2taxid.map"), "w") as f:
         for acc, tid in acc_map:
             f.write(f"{acc}\t{tid}\n")
+    if write_reference_format:
+        export_reference_format(db_dir, index)
     shutil.rmtree(spill_dir, ignore_errors=True)
     return index

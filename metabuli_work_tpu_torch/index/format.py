@@ -1,4 +1,4 @@
-"""On-disk database layout (native).
+"""On-disk database layout (native) + reference-format export/import.
 
 Native layout (directory):
   db.meta.json     build parameters & stats (the reference's db.parameters
@@ -10,20 +10,40 @@ Native layout (directory):
   taxID_list       text, one internal taxid per line (reference parity)
   acc2taxid.map    accession\toriginal-taxid
 
-Importing and exporting the reference's diffIdx/info/split layout is not
-part of this package yet.
+Reference layout interop (diffIdx/info/split; Appendix A.1 of SURVEY.md):
+  export_reference_format / import_reference_format re/de-code the exact
+  byte formats so DBs can be diffed k-mer-for-k-mer against the C++ build
+  (encode IndexCreator.cpp:868-886; split writer IndexCreator.cpp:811-866;
+  info redundancy bit KmerMatcher.cpp:204-205).  load_index on a
+  directory with diffIdx (or deltaIdx.mtbl) and no db.meta.json imports
+  it through load_reference_db: the taxonomyDB blob keeps the reference's
+  internal taxids, and the decoded arrays land in .npy files under
+  <db>/.import_cache, reused while the source files and the taxonomy's
+  species table are unchanged (in a temp dir, deleted once mapped, when
+  the DB directory is read-only).
+
+Imported arrays are copy-on-write memory maps of those files: torch
+tensors and the packed-layout cache read their pages without a host
+copy, and a write to them (none is made) would stay private to the
+process, never reaching the cache.
 """
 
+import hashlib
 import json
 import os
+import shutil
+import sys
+import tempfile
 import time
 from dataclasses import dataclass, field
 
 import numpy as np
 
 from ..taxonomy import Taxonomy
+from .delta import _split_deltas_96, decode_deltas, encode_deltas
 
 DB_META_NAME = "db.meta.json"
+SPLIT_NUM = 4096  # reference workflow/build.cpp:20
 
 
 @dataclass
@@ -96,11 +116,12 @@ def save_index(db_dir, index: KmerIndex, extra_meta=None):
 
 def load_index(db_dir) -> KmerIndex:
     meta_path = os.path.join(db_dir, DB_META_NAME)
-    if not os.path.exists(meta_path) \
-            and os.path.exists(os.path.join(db_dir, "diffIdx")):
-        raise NotImplementedError(
-            "reference-format databases are not supported by this package "
-            "yet (ROADMAP.md, Queue 1: reference-format DB import)")
+    if not os.path.exists(meta_path) and any(
+            os.path.exists(os.path.join(db_dir, f))
+            for f in ("diffIdx", "deltaIdx.mtbl")):
+        # a DB built by the reference C++ binary, in either layout:
+        # import it wholesale
+        return load_reference_db(db_dir)
     with open(meta_path) as f:
         meta = json.load(f)
     values = np.load(os.path.join(db_dir, "kmers.npy"))
@@ -108,3 +129,383 @@ def load_index(db_dir) -> KmerIndex:
     species = np.load(os.path.join(db_dir, "species.npy"))
     taxonomy = Taxonomy.load(os.path.join(db_dir, "taxonomy.npz"))
     return KmerIndex(values, taxids, species, taxonomy, meta)
+
+
+def read_db_parameters(path) -> dict:
+    """Parse the reference's db.parameters (key\\tvalue text; writer
+    IndexCreator.cpp:1245-1266) into the native meta dict keys."""
+    kv = {}
+    with open(path) as f:
+        for line in f:
+            parts = line.rstrip("\n").split("\t")
+            if len(parts) >= 2:
+                kv[parts[0]] = parts[1]
+    return {
+        "db_name": kv.get("DB_name", ""),
+        "creation_date": kv.get("Creation_date", ""),
+        "reduced_aa": int(kv.get("Reduced_alphabet", 0) or 0),
+        "accession_level": int(kv.get("Accession_level", 0) or 0),
+        "mask_mode": int(kv.get("Mask_mode", 0) or 0),
+        "mask_prob": float(kv.get("Mask_prob", 0.9) or 0.9),
+        "skip_redundancy": int(kv.get("Skip_redundancy", 1) or 1),
+        "syncmer": bool(int(kv.get("Syncmer", 0) or 0)),
+        "smer_len": int(kv.get("Syncmer_len", 5) or 5),
+        "kmer_format": int(kv.get("Kmer_format", 2) or 2),
+        # the reference binary always extracts via Prodigal extended
+        # ORFs (IndexCreator.cpp:1124-1212); database-report prints
+        # these keys as the JAX package's does
+        "orf_prediction": 1,
+        "gene_predictor": "prodigal",
+    }
+
+
+def load_db_taxonomy(db_dir) -> Taxonomy:
+    """Taxonomy of ANY DB directory: native (taxonomy.npz), reference
+    (taxonomyDB blob), or a raw taxdump dir (nodes.dmp) — the loader
+    every downstream tool (extract/refiner/grade/apply-group/...) goes
+    through so they run against imported reference DBs too (the
+    reference's loadTaxonomy, common.cpp:50-86)."""
+    npz = os.path.join(db_dir, "taxonomy.npz")
+    if os.path.exists(npz):
+        return Taxonomy.load(npz)
+    blob = os.path.join(db_dir, "taxonomyDB")
+    if os.path.exists(blob):
+        return load_reference_taxonomy(blob)
+    if os.path.exists(os.path.join(db_dir, "nodes.dmp")):
+        return Taxonomy.from_taxdump(db_dir)
+    raise FileNotFoundError(
+        f"no taxonomy found in {db_dir} (taxonomy.npz / taxonomyDB / "
+        f"nodes.dmp)")
+
+
+def load_reference_taxonomy(path) -> Taxonomy:
+    """Parse a reference taxonomyDB blob into a Taxonomy whose INTERNAL
+    ids equal the reference's internal numbering (so the `info` stream's
+    taxids can be used directly).
+
+    Blob layout (TaxonomyWrapper::serialize, TaxonomyWrapper.cpp:289-360):
+    version i32, [internalTaxIdUsed u64], maxNodes u64, maxTaxID i32,
+    TaxonNode[maxNodes] (i32 id, i32 taxId, i32 parentTaxId, pad, u64
+    rankIdx, u64 nameIdx; 32 B), D i32[maxTaxID+1],
+    [internal2orgTaxId i32[maxTaxID+1]], E/L i32[2*maxNodes],
+    H i32[maxNodes], M i32[2*maxNodes*(log2(2*maxNodes)+1)],
+    StringBlock<u32> (count u32, bytes u32, offsets u32[count+1], chars).
+    """
+    buf = np.fromfile(path, dtype=np.uint8)
+    pos = 0
+
+    def take(dtype, count):
+        nonlocal pos
+        n = np.dtype(dtype).itemsize * count
+        out = buf[pos:pos + n].view(dtype)
+        pos += n
+        return out
+
+    version = int(take(np.int32, 1)[0])
+    if version not in (1, 2, 3):
+        raise ValueError(f"unsupported taxonomyDB version {version}")
+    peek = int(buf[pos:pos + 8].view(np.uint64)[0])
+    use_internal = peek == 1
+    if use_internal:
+        pos += 8
+    max_nodes = int(take(np.uint64, 1)[0])
+    max_taxid = int(take(np.int32, 1)[0])
+    node_rec = np.dtype([("id", "<i4"), ("taxId", "<i4"),
+                         ("parentTaxId", "<i4"), ("pad", "<i4"),
+                         ("rankIdx", "<u8"), ("nameIdx", "<u8")])
+    nodes = buf[pos:pos + max_nodes * 32].view(node_rec)
+    pos += max_nodes * 32
+    D = take(np.int32, max_taxid + 1)
+    if use_internal:
+        int2org = take(np.int32, max_taxid + 1).astype(np.int64)
+    else:
+        int2org = np.arange(max_taxid + 1, dtype=np.int64)
+    pos += 2 * (2 * max_nodes) * 4          # E, L
+    pos += max_nodes * 4                    # H
+    k = int(np.floor(np.log2(max(2 * max_nodes, 2)))) + 1
+    pos += (2 * max_nodes) * k * 4          # M
+    sb_count = int(take(np.uint32, 1)[0])
+    sb_bytes = int(take(np.uint32, 1)[0])
+    offsets = take(np.uint32, sb_count + 1)
+    chars = buf[pos:pos + sb_bytes].tobytes()
+
+    def get_string(idx):
+        if idx >= sb_count:
+            return ""
+        start = int(offsets[idx])
+        end = chars.find(b"\0", start)
+        return chars[start:end if end >= 0 else None].decode(
+            "utf-8", "replace")
+
+    n = max_taxid + 1
+    parent = np.zeros(n, dtype=np.int32)
+    rank_pool, rank_map = ["no rank"], {"no rank": 0}
+    name_pool = ["unclassified"]
+    rank_idx = np.zeros(n, dtype=np.int32)
+    name_idx = np.zeros(n, dtype=np.int32)
+    for i in range(1, n):
+        d = int(D[i])
+        if d < 0 or d >= max_nodes:
+            continue
+        node = nodes[d]
+        parent[i] = int(node["parentTaxId"])
+        rank = get_string(int(node["rankIdx"]))
+        if rank not in rank_map:
+            rank_map[rank] = len(rank_pool)
+            rank_pool.append(rank)
+        rank_idx[i] = rank_map[rank]
+        nm = int(node["nameIdx"])
+        name = get_string(nm) if nm != (1 << 64) - 1 else str(int2org[i])
+        name_idx[i] = len(name_pool)
+        name_pool.append(name)
+    return Taxonomy(parent, rank_idx, name_idx, rank_pool, name_pool,
+                    int2org)
+
+
+def load_reference_db(db_dir) -> KmerIndex:
+    """Load a DB directory produced by the reference C++ binary:
+    taxonomyDB blob + diffIdx/info streams + db.parameters, imported
+    into the native sorted-array index with the reference's internal
+    taxid space preserved."""
+    taxonomy = load_reference_taxonomy(os.path.join(db_dir, "taxonomyDB"))
+    meta = read_db_parameters(os.path.join(db_dir, "db.parameters"))
+    index = import_reference_format(db_dir, taxonomy, meta)
+    return index
+
+
+# --------------------------------------------------------------------- #
+# reference-format interop
+# --------------------------------------------------------------------- #
+def export_reference_format(db_dir, index: KmerIndex):
+    """Write diffIdx/info/split alongside the native files."""
+    chunks = encode_deltas(index.values)
+    chunks.astype("<u2").tofile(os.path.join(db_dir, "diffIdx"))
+    index.taxids.astype("<u4").tofile(os.path.join(db_dir, "info"))
+
+    # split checkpoints: SPLIT_NUM records; entry 0 zero; checkpoints at
+    # ~equal info spacing aligned to AA-part boundaries.
+    n = index.size
+    rec = np.zeros(SPLIT_NUM, dtype=[("ADkmer", "<u8"), ("diffIdxOffset", "<u8"), ("infoIdxOffset", "<u8")])
+    if n > 0:
+        # chunk count per value -> diffIdx offset of each value
+        is_end = (chunks & np.uint16(0x8000)) != 0
+        ends = np.nonzero(is_end)[0]
+        starts = np.empty_like(ends)
+        starts[0] = 0
+        starts[1:] = ends[:-1] + 1
+        aa = index.values >> np.uint64(24)
+        boundaries = np.concatenate([[0], np.nonzero(aa[1:] != aa[:-1])[0] + 1])
+        per = max(n // SPLIT_NUM, 1)
+        written = 1
+        for k in range(1, SPLIT_NUM):
+            target = k * per
+            if target >= n or written >= SPLIT_NUM:
+                break
+            # first AA boundary at or after target
+            j = int(np.searchsorted(boundaries, target, side="left"))
+            if j >= len(boundaries):
+                break
+            i = int(boundaries[j])
+            if i == 0 or i >= n:
+                continue
+            rec[written] = (index.values[i - 1], starts[i], i)
+            written += 1
+    with open(os.path.join(db_dir, "split"), "wb") as f:
+        rec.tofile(f)
+
+
+def _import_cache_dir(db_dir):
+    """(cache dir, kept): <db_dir>/.import_cache when the DB directory is
+    writable, so reloads reuse it; else a fresh temp dir (kept False)
+    that import_reference_format removes once its arrays are mapped."""
+    cache = os.path.join(db_dir, ".import_cache")
+    try:
+        os.makedirs(cache, exist_ok=True)
+        probe = os.path.join(cache, ".w")
+        with open(probe, "w"):
+            pass
+        os.unlink(probe)
+        return cache, True
+    except OSError:
+        return tempfile.mkdtemp(prefix="mwt_import_"), False
+
+
+def _import_signature(db_dir, src, use_mtbl, taxonomy):
+    """What the cached arrays are made of: the size and mtime of the
+    delta stream (and of info for the diffIdx layout), and a digest of
+    the taxonomy's species table, from which the species column is
+    made (it covers an edited taxonomyDB and a taxonomy passed from
+    elsewhere alike).  db.parameters is read anew on every load and
+    cached nowhere."""
+    parts = []
+    for path in (src,) if use_mtbl else (src, os.path.join(db_dir, "info")):
+        st = os.stat(path)
+        parts.append(f"{os.path.basename(path)}:{st.st_size}:"
+                     f"{st.st_mtime_ns}")
+    table = getattr(taxonomy, "at_rank", {}).get("species")
+    if table is not None:
+        digest = hashlib.sha1(np.ascontiguousarray(table).tobytes())
+        parts.append(f"species:{digest.hexdigest()}")
+    return " ".join(parts)
+
+
+def import_reference_format(db_dir, taxonomy: Taxonomy, meta=None,
+                            window_bytes: int = 256 << 20) -> KmerIndex:
+    """Read a reference DB into the native index by STREAMING the delta
+    stream through a bounded window (VERDICT r2 item 5): conversion
+    peak RAM is O(window), not O(DB) — a prebuilt 8-620 GiB reference
+    DB (the reference README's prebuilt DBs) converts under a RAM budget.
+    Decoded arrays land in memmaps under <db_dir>/.import_cache, reused
+    on reload while _import_signature is unchanged.  A new decode
+    writes fresh files and renames them over the old ones, so maps of
+    an earlier import stay valid.  When db_dir is not writable, the
+    arrays are decoded into a temp dir that is deleted as soon as they
+    are mapped: its space is freed when the index is dropped, and every
+    load decodes again (convertDB --output keeps a native copy).
+
+    The window decode mirrors the reference's own streaming reader
+    (DeltaIdxReader::getValues, DeltaIdxReader.h:214-229): each pass
+    decodes the chunks up to the last complete (end-flagged) delta,
+    carries the partial tail into the next pass, and offsets the
+    window's cumulative sum by the previous pass's last value.
+
+    Handles both on-disk layouts: old diffIdx/info (64-bit value deltas
+    + uint32 taxid stream) and the newer deltaIdx.mtbl (96-bit
+    metamer+id joint deltas, read by matchMetamers —
+    KmerMatcher.cpp:780-812; mtbl decode is windowed the same way via
+    the telescoping low-part sum)."""
+    cache, kept = _import_cache_dir(db_dir)
+    mtbl = os.path.join(db_dir, "deltaIdx.mtbl")
+    use_mtbl = os.path.exists(mtbl)
+    src = mtbl if use_mtbl else os.path.join(db_dir, "diffIdx")
+    sig_path = os.path.join(cache, "source.sig")
+    sig = _import_signature(db_dir, src, use_mtbl, taxonomy)
+    names = ("kmers.npy", "infos.npy", "species.npy")
+    paths = [os.path.join(cache, n) for n in names]
+    if _read_text(sig_path) == sig and all(os.path.exists(p) for p in paths):
+        return _mapped_index(paths, taxonomy, meta)
+    if not kept:
+        print(f"import: {db_dir} is not writable, so the decoded DB is not "
+              f"cached and every load decodes it again; `convertDB "
+              f"{db_dir} --output DIR` writes a native copy",
+              file=sys.stderr)
+
+    from numpy.lib.format import open_memmap
+
+    win = max(int(window_bytes) // 2, 1 << 16)   # u16 chunks per pass
+    if use_mtbl:
+        # entry count is unknown until decoded: two passes (count ends,
+        # then decode) keep RAM bounded
+        n = 0
+        with open(src, "rb") as f:
+            while True:
+                blk = np.fromfile(f, dtype="<u2", count=win)
+                if not len(blk):
+                    break
+                n += int(((blk & np.uint16(0x8000)) != 0).sum())
+    else:
+        n = os.path.getsize(os.path.join(db_dir, "info")) // 4
+
+    fresh = [p + ".new" for p in paths]
+    values = open_memmap(fresh[0], mode="w+", dtype=np.uint64, shape=(n,))
+    taxids = open_memmap(fresh[1], mode="w+", dtype=np.int32, shape=(n,))
+    species = open_memmap(fresh[2], mode="w+", dtype=np.int32, shape=(n,))
+
+    leftover = np.zeros(0, dtype=np.uint16)
+    out_pos = 0
+    carry_value = np.uint64(0)      # last decoded 64-bit value
+    carry_low = np.uint64(0)        # mtbl: cumulative 30-bit low sum
+    with open(src, "rb") as f:
+        while True:
+            blk = np.fromfile(f, dtype="<u2", count=win)
+            if not len(blk) and not len(leftover):
+                break
+            chunk = np.concatenate([leftover, blk]) if len(leftover) \
+                else blk
+            is_end = (chunk & np.uint16(0x8000)) != 0
+            if not is_end.any():
+                leftover = chunk
+                if not len(blk):
+                    break
+                continue
+            last_end = int(np.nonzero(is_end)[0][-1])
+            leftover = chunk[last_end + 1:]
+            chunk = chunk[:last_end + 1]
+            if use_mtbl:
+                # windowed 96-bit decode: high parts accumulate into the
+                # metamer, the 30-bit low sum telescopes across windows
+                v, ids, carry_value, carry_low = _decode_mtbl_window(
+                    chunk, carry_value, carry_low)
+                t = ids.astype(np.int32)
+            else:
+                v = decode_deltas(chunk) + carry_value
+                carry_value = v[-1]
+                t = None
+            m = len(v)
+            values[out_pos:out_pos + m] = v
+            if t is not None:
+                taxids[out_pos:out_pos + m] = t
+            out_pos += m
+            if not len(blk):
+                break
+    assert out_pos == n, f"decoded {out_pos} entries, expected {n}"
+
+    if not use_mtbl:
+        # taxids/species in the same bounded windows
+        info_path = os.path.join(db_dir, "info")
+        pos = 0
+        with open(info_path, "rb") as f:
+            while True:
+                blk = np.fromfile(f, dtype="<u4", count=win)
+                if not len(blk):
+                    break
+                t = (blk & np.uint32(0x7FFFFFFF)).astype(np.int32)
+                taxids[pos:pos + len(t)] = t
+                pos += len(t)
+    step = max(win, 1)
+    for lo in range(0, n, step):
+        hi = min(lo + step, n)
+        t = np.asarray(taxids[lo:hi])
+        sp = taxonomy.species_of(t).astype(np.int32)
+        species[lo:hi] = np.where(sp == 0, t, sp)
+
+    for a in (values, taxids, species):
+        a.flush()
+    del values, taxids, species
+    for a, b in zip(fresh, paths):
+        os.replace(a, b)
+    with open(sig_path, "w") as f:
+        f.write(sig)
+    index = _mapped_index(paths, taxonomy, meta)
+    if not kept:
+        shutil.rmtree(cache, ignore_errors=True)
+    return index
+
+
+def _read_text(path):
+    """The file's text, or None when it does not exist."""
+    try:
+        with open(path) as f:
+            return f.read()
+    except FileNotFoundError:
+        return None
+
+
+def _mapped_index(paths, taxonomy, meta):
+    """KmerIndex over the import cache's kmers/infos/species .npy files,
+    mapped copy-on-write (see the module docstring)."""
+    values, taxids, species = (np.load(p, mmap_mode="c") for p in paths)
+    return KmerIndex(values, taxids, species, taxonomy, meta or {})
+
+
+def _decode_mtbl_window(chunks, carry_metamer, carry_low):
+    """One window of the 96-bit (metamer, id) delta stream (see
+    delta.decode_metamer_deltas for the telescoping-low-sum math).
+    Returns (metamers, ids, next_carry_metamer, next_carry_low)."""
+    highs, lows = _split_deltas_96(chunks)
+    low_cum = np.cumsum(lows, dtype=np.uint64) + carry_low
+    metamers = (np.cumsum(highs, dtype=np.uint64) + carry_metamer
+                + (low_cum >> np.uint64(30)))
+    ids = (low_cum & np.uint64((1 << 30) - 1)).astype(np.uint32)
+    return (metamers, ids, metamers[-1] - (low_cum[-1] >> np.uint64(30)),
+            low_cum[-1])

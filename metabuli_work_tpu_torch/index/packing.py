@@ -156,7 +156,7 @@ def shard_quad_index(quad: np.ndarray, n_shards: int, wide: bool = True):
     if not wide:
         raise NotImplementedError(
             "only the wide-row shard layout is ported (ROADMAP.md, Queue 1 "
-            "item 3)")
+            "item 25)")
     M = quad.shape[0]
     v = quad[:, 0].astype(np.uint64) | (quad[:, 1].astype(np.uint64) << 32)
     aa = v >> np.uint64(DNA_BITS)

@@ -60,6 +60,34 @@ def mask_low_complexity(seq: str, mask_prob: float = 0.9) -> str:
     return _mask_dust(seq, mask_prob)
 
 
+def mask_batch_rows(arr: np.ndarray, lens, mask_prob: float = 0.9):
+    """Masking of padded uint8 read rows [B, L], each on its first
+    ``lens[i]`` bytes (the native batch reader's rows): the native
+    tantan HMM in place, the DUST masker row by row when the library is
+    absent.  Returns ``arr`` (a contiguous copy when it was not)."""
+    lib = _load_tantan()
+    arr = np.ascontiguousarray(arr)
+    lens = np.asarray(lens)
+    if lib:
+        pu8 = ctypes.POINTER(ctypes.c_uint8)
+        step = arr.strides[0]
+        base = arr.ctypes.data
+        for i in range(arr.shape[0]):
+            L = int(min(lens[i], arr.shape[1]))
+            if L:
+                lib.tantan_mask(ctypes.cast(base + i * step, pu8), L,
+                                float(mask_prob))
+        return arr
+    for i in range(arr.shape[0]):
+        L = int(min(lens[i], arr.shape[1]))
+        if L:
+            s = arr[i, :L].tobytes().decode("ascii", "replace")
+            arr[i, :L] = np.frombuffer(
+                _mask_dust(s, mask_prob).encode("ascii", "replace"),
+                np.uint8)
+    return arr
+
+
 def _mask_dust(seq: str, mask_prob: float = 0.9) -> str:
     n = len(seq)
     if n < _WINDOW:

@@ -99,7 +99,7 @@ def match_kmers_quad(q_kmers, q_frames, q_valid, db_quad, cap: int,
     if db_quad.shape[1] != 128 or hash_table is None:
         raise NotImplementedError(
             "only the wide-row hash probe is ported (ROADMAP.md, Queue 1 "
-            "item 3)")
+            "item 25)")
     M = db_m if db_m is not None else db_quad.shape[0] * 32
     q_aa = (q_kmers >> DNA_BITS) & _M40
     lo, rlen = _hash_search(q_aa, hash_table, hash_log2_rows, hash_chain, M)

@@ -18,12 +18,13 @@ BUILD_DIR = os.path.join(REPO_ROOT, "build", "torch_kernels")
 NATIVE_DIR = os.path.join(REPO_ROOT, "native")
 
 
-def build_library(sources, lib_name, cmd_prefix, deps=()):
+def build_library(sources, lib_name, cmd_prefix, deps=(), libs=()):
     """Compile `sources` into BUILD_DIR/lib_name unless a copy newer than
     the sources and `deps` (headers they include) exists; returns the
-    library path.  cmd_prefix is the compiler and its flags; "-o <tmp>"
-    and the sources are appended.  Raises RuntimeError with the
-    compiler's output on failure."""
+    library path.  cmd_prefix is the compiler and its flags; "-o <tmp>",
+    the sources and then `libs` (link flags such as "-lz", which must
+    follow the objects that need them) are appended.  Raises
+    RuntimeError with the compiler's output on failure."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, lib_name)
     newest = max(os.path.getmtime(s) for s in [*sources, *deps])
@@ -32,8 +33,8 @@ def build_library(sources, lib_name, cmd_prefix, deps=()):
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=".tmp_", suffix=".so")
     os.close(fd)
     try:
-        r = subprocess.run(list(cmd_prefix) + ["-o", tmp] + list(sources),
-                           capture_output=True, text=True)
+        r = subprocess.run(list(cmd_prefix) + ["-o", tmp] + list(sources)
+                           + list(libs), capture_output=True, text=True)
     except FileNotFoundError as e:
         os.unlink(tmp)
         raise RuntimeError(f"compiler not found: {e}") from e
@@ -44,9 +45,9 @@ def build_library(sources, lib_name, cmd_prefix, deps=()):
     return out
 
 
-def build_native(src_name, lib_name, extra_flags=()):
+def build_native(src_name, lib_name, extra_flags=(), libs=()):
     """g++ build of one of the repo's native/*.cpp host helpers."""
     src = os.path.join(NATIVE_DIR, src_name)
     return build_library([src], lib_name,
                          ["g++", "-O2", "-Wall", "-shared", "-fPIC",
-                          *extra_flags])
+                          *extra_flags], libs=libs)

@@ -1,9 +1,11 @@
-"""Stage timing — the package's observability layer.
+"""Stage timing and profiling — the package's observability layer.
 
 Reference behavior: ad-hoc wall-clock stage prints (Classifier.cpp:
 116-125, KmerMatcher.cpp:202,477) + /proc/self/stat memory reporting
 (common.cpp:27-47).  Here: a StageTimer accumulating per-stage host
-seconds across batches (printed as a table) and process RSS sampling.
+seconds across batches (printed as a table), process RSS sampling, and
+maybe_torch_profile, a torch.profiler trace of a region (classify
+--profile-dir).
 """
 
 import contextlib
@@ -47,3 +49,24 @@ def rss_gb() -> float:
         return pages * os.sysconf("SC_PAGE_SIZE") / (1 << 30)
     except (OSError, ValueError):
         return 0.0
+
+
+@contextlib.contextmanager
+def maybe_torch_profile(trace_dir=None):
+    """Wrap a region in a torch.profiler trace when trace_dir is given:
+    CPU activity, plus CUDA activity when a card is visible; the Chrome
+    trace is written to trace_dir/trace_<pid>_<ns>.json when the region
+    ends."""
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if torch.cuda.is_available() else [])
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(
+        trace_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

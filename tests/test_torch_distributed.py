@@ -7,6 +7,7 @@ JAX package's, and each read is scored by exactly one process."""
 
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -56,6 +57,13 @@ def test_two_process_classify_equals_single(tmp_path):
     assert _records(JClassifier(db, JParams(**PARAMS)).classify_file(path)) \
         == want
 
+    merged, _ = _two_processes(root, db, path)
+    assert merged == want
+
+
+def _two_processes(root, db, path, seq_mode=1):
+    """Run the worker in two processes over gloo; returns (the merged
+    records, each process's log)."""
     port, nproc = _free_port(), 2
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -63,7 +71,7 @@ def test_two_process_classify_equals_single(tmp_path):
     outs = [os.path.join(root, f"out_{r}.json") for r in range(nproc)]
     procs = [subprocess.Popen(
         [sys.executable, worker, str(port), str(r), str(nproc), db, path,
-         outs[r], "2"], env=env, stdout=subprocess.PIPE,
+         outs[r], "2", str(seq_mode)], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT) for r in range(nproc)]
     logs = []
     try:
@@ -86,4 +94,31 @@ def test_two_process_classify_equals_single(tmp_path):
         for k, v in part.items():
             assert k not in merged, f"read {k} scored by two processes"
             merged[k] = v
+    return merged, logs
+
+
+def test_two_process_long_read_beyond_row_cap(tmp_path):
+    """--seq-mode 3 with a read beyond the 65,536-base row cap at place 5
+    of the first batch of 8: dp row 1, so process 1 owns it.  Only
+    process 1 redoes it from chunks, and it lands at its own place in
+    that process's records, equal to the single-process run."""
+    root = str(tmp_path)
+    db = build_db(jbuild, root, "db", syncmer=True)
+    genomes, _ = write_inputs(root)
+    reads, _ = simulate_reads(genomes, 11, seed=73)
+    path = os.path.join(root, "reads.fna")
+    long_read = genomes[1] * 17                          # 68,000 bases
+    with open(path, "w") as f:
+        for i, r in enumerate(reads):
+            if i == 5:
+                f.write(f">long\n{long_read}\n")
+            f.write(f">r{i}\n{r.tobytes().decode()}\n")
+    params = ClassifyParams(**{**PARAMS, "seq_mode": 3})
+    want = _records(Classifier(db, params, device="cpu").classify_file(path))
+    assert len(want) == 12 and want["long"][0]
+
+    merged, logs = _two_processes(root, db, path, seq_mode=3)
     assert merged == want
+    redone = [int(re.search(r"(\d+) long reads", log).group(1))
+              for log in logs]
+    assert redone == [0, 1], logs

@@ -181,18 +181,22 @@ def test_cli_paired_outputs_byte_identical(dbs, capsys):
 
 def test_unported_configurations_raise(dbs, monkeypatch):
     _, jdb, _, _ = dbs
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        Classifier(jdb, ClassifyParams(**{**PARAMS, "em": True}),
-                   device="cpu")
-    # the flows this test used to refuse now run
+    from metabuli_work_tpu_torch.index.packing import shard_quad_index
+
+    with pytest.raises(NotImplementedError, match="Queue 1 item 25"):
+        shard_quad_index(np.zeros((4, 4), np.uint32), 2, wide=False)
+    # the flows this test used to refuse now run, --em too
     for kw in (dict(seq_mode=2), dict(seq_mode=3), dict(min_cons_cnt=1),
-               dict(hbm_budget_gb=1.0)):
+               dict(hbm_budget_gb=1.0), dict(em=True)):
         Classifier(jdb, ClassifyParams(**{**PARAMS, **kw}), device="cpu")
     assert Classifier(jdb, ClassifyParams(**PARAMS),
                       mesh=make_mesh(2, devices=["cpu"] * 2)).mesh is not None
     monkeypatch.setenv("METABULI_DEVICE_ASSIGN", "1")
     assert Classifier(jdb, ClassifyParams(**PARAMS),
                       device="cpu")._device_assign
+    # --em keeps per-read species scores, which device-assign lacks
+    assert not Classifier(jdb, ClassifyParams(**{**PARAMS, "em": True}),
+                          device="cpu")._device_assign
 
 
 def test_mate_files_of_different_length_raise(dbs, tmp_path):
@@ -210,3 +214,31 @@ def test_mate_files_of_different_length_raise(dbs, tmp_path):
     with pytest.raises(ValueError, match=r"short\.fna ends after 13 reads.*"
                                          r"r1\.fna has more"):
         clf.classify_file(short, r1)
+
+
+def test_block_overflow_doubles_once_for_queued_batches(dbs, tmp_path):
+    """Two batches queued together that both overflow the blocked path
+    emission ran with the same block: the sticky block doubles once,
+    from the value they were dispatched with, not once per batch."""
+    root, jdb, _, reads = dbs
+    with open(reads) as f:
+        first8 = f.readlines()[:16]
+    twice = str(tmp_path / "twice.fna")
+    with open(twice, "w") as f:
+        f.writelines(first8 + first8)                  # two equal batches
+    one = str(tmp_path / "one.fna")
+    with open(one, "w") as f:
+        f.writelines(first8)
+    # the block one such batch settles at, climbing from 1
+    probe = Classifier(jdb, ClassifyParams(**PARAMS), device="cpu")
+    probe._path_block = 1
+    probe.classify_file(one)
+    settled = probe._path_block
+    assert settled >= 2
+    clf = Classifier(jdb, ClassifyParams(**PARAMS), device="cpu")
+    clf._path_block = settled // 2              # both batches overflow
+    got = _tuples(clf.classify_file(twice))
+    assert clf._path_block == settled
+    ref = _tuples(Classifier(jdb, ClassifyParams(**PARAMS),
+                             device="cpu").classify_file(twice))
+    assert got == ref

@@ -125,3 +125,42 @@ def simulate_long(genomes, lengths, seed=1, err=0.01, seg=1000):
         reads.append(np.ascontiguousarray(r))
         src.append(g)
     return reads, np.array(src)
+
+
+def write_taxonomy_blob(path, tax):
+    """A reference taxonomyDB blob of `tax` (any object with parent,
+    int2orig, rank_of and name_of), in the layout the reference's
+    TaxonomyWrapper::serialize writes (version 3, internalTaxIdUsed set,
+    so the internal ids are kept): node d holds internal id d + 1; the
+    E/L/H/M lookup tables, which a reader skips, are zeros."""
+    n = len(tax.parent)
+    max_nodes, max_taxid = n - 1, n - 1
+    strings, at = [], {}
+
+    def sidx(s):
+        if s not in at:
+            at[s] = len(strings)
+            strings.append(s)
+        return at[s]
+
+    node = np.dtype([("id", "<i4"), ("taxId", "<i4"), ("parentTaxId", "<i4"),
+                     ("pad", "<i4"), ("rankIdx", "<u8"), ("nameIdx", "<u8")])
+    nodes = np.zeros(max_nodes, dtype=node)
+    for i in range(1, n):
+        nodes[i - 1] = (i - 1, i, int(tax.parent[i]), 0,
+                        sidx(tax.rank_of(i)), sidx(tax.name_of(i)))
+    D = np.arange(-1, max_nodes, dtype="<i4")
+    k = int(np.floor(np.log2(max(2 * max_nodes, 2)))) + 1
+    chars = b"".join(s.encode() + b"\0" for s in strings)
+    offsets = np.concatenate([[0], np.cumsum([len(s.encode()) + 1
+                                              for s in strings])])
+    with open(path, "wb") as f:
+        for a in (np.array([3], "<i4"), np.array([1, max_nodes], "<u8"),
+                  np.array([max_taxid], "<i4"), nodes, D,
+                  np.asarray(tax.int2orig, "<i4"),
+                  np.zeros(2 * 2 * max_nodes + max_nodes
+                           + 2 * max_nodes * k, "<i4"),
+                  np.array([len(strings), len(chars)], "<u4"),
+                  offsets.astype("<u4")):
+            f.write(a.tobytes())
+        f.write(chars)
