@@ -88,6 +88,39 @@
      classifications byte-equal to the em run's, the EM files and a
      trace written; then convertDB, validatedb and printDeltaIdx --limit
      5 on that directory, exit 0, the five values the index's first;
+   after those, so that every earlier path and phase runs as before them:
+   - orf build: ORF_GENOMES gene-structured genomes of 4 Mb in 2 genera
+     (genes of 300-1,500 bp on both strands between 50-300-bp spacers,
+     about 88% coding; 3.5% mutations per species) built by
+     build_database(orf_prediction=True, gene_predictor="auto") with
+     spawned extraction workers (cached under ~/.cache by config key);
+     prints the predictor that ran (the heuristic scan of index/orf.py
+     where the Prodigal library cannot be built, with the reason), the
+     build seconds, the k-mer count and the share of genome bases inside
+     predicted blocks; then 16,384 single-end reads of those genomes;
+   - updateDB: the smoke index saved as a native DB, update_database adds
+     a ninth genome (4 Mb) under a new genus and species grafted by a
+     new-taxa TSV; the single-end reads and 2,048 reads of the ninth
+     genome classified on the updated DB: >= 95% of the ninth genome's at
+     its species; prints how many of the old reads changed against the
+     resident single-end run (an observation, not a gate);
+   - accession-level: the ninth genome built alone as two accessions of
+     2 Mb under its species with accession_level=True; the same reads
+     classified on it; prints the share of the ninth genome's reads
+     called at the accession that holds them;
+   - filter: filter_reads of those reads with the accession-level DB as
+     the contaminant list: the removed reads are exactly the reads the
+     accession-level phase classified, >= 95% of the ninth genome's and
+     <= 1% of the others;
+   each of the four with the kernel counts zeroed before it and read
+   after it, its stage table and reads/s, and 256 reads (128 of each
+   kind; for filter, their kept/removed split) equal to the CPU run's;
+   - cli tools (subprocesses): filter of 4,096 of those reads as FASTQ
+     (its split equal to the API run's), grade of the cli phase's
+     classifications against the simulated answer sheet (F1 at species
+     and genus), taxdump of the updated DB, count-common-kmers of the
+     accession-level DB against the updated DB (shared = the
+     accession-level DB's distinct values: both extract alike);
    For every path it checks that the plain DP never ran on the card,
    that every launch at cap <= 32 went to the warp variant, that >= 95%
    of reads land on their source species or genus, and that a subset
@@ -125,6 +158,7 @@ records, its launch counts and its parity checks to OUT.
 
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -151,6 +185,11 @@ READER_TURNS = 3                 # runs of the single-end reads per reader
 N_CLI = 4096                     # reads of the CLI phase
 STREAM_GB = 0.25                 # budget that cuts the index into 4 ranges
 OVER_CAP = 66_000                # a little beyond the 64-kb row cap
+ORF_GENOMES = 8                  # ORF build: gene-structured genomes
+ORF_MIN_RIGHT = 0.9              # its reads at source species or genus
+NINTH_LEN = 4_000_000            # updateDB / accession level: one more genome
+N_NINTH = 2048                   # its reads
+SHORT = dict(min_score=0.15, min_sp_score=0.5)   # short-read thresholds
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate
 ALU_OPS_PER_S = 67e12            # H100 SXM 32-bit non-tensor peak
 QUEUE_CYCLES = 50_000_000        # ~25 ms of device spin while the host
@@ -181,6 +220,12 @@ ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 _COMP = np.zeros(256, dtype=np.uint8)
 for _a, _b in zip(b"ACGT", b"TGCA"):
     _COMP[_a] = _b
+_ATG = np.frombuffer(b"ATG", dtype=np.uint8)
+_STOPS = np.frombuffer(b"TAATAGTGA", dtype=np.uint8).reshape(3, 3)
+_SENSE = np.array([[a, b, c] for a in b"ACGT" for b in b"ACGT"
+                   for c in b"ACGT"
+                   if bytes((a, b, c)) not in (b"TAA", b"TAG", b"TGA")],
+                  dtype=np.uint8)
 
 
 def card_line():
@@ -596,7 +641,9 @@ def drive(dp_cuda, clf, run):
     kernel count set to 0 just before `run()` and read just after.
     Every path_dp_blocked call is noted as (cap, W, compact5); the inputs
     of the first KEEP_INPUTS distinct ones are kept (device copies, so
-    they count into the run's peak memory) for the timings."""
+    they count into the run's peak memory) for the timings.  `clf` is the
+    classifier `run` uses, or a function that returns it after the run
+    (a classifier that `run` makes, whose timer starts at zero)."""
     calls, first = [], {}
     launch = dp_cuda.path_dp_blocked
 
@@ -607,8 +654,9 @@ def drive(dp_cuda, clf, run):
             first[key] = ([a.clone() for a in args], dict(kw))
         return launch(*args, **kw)
 
-    clf.timer.totals.clear()
-    clf.timer.counts.clear()
+    if not callable(clf):
+        clf.timer.totals.clear()
+        clf.timer.counts.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -622,20 +670,21 @@ def drive(dp_cuda, clf, run):
     finally:
         dp_cuda.path_dp_blocked = launch
     dt = time.perf_counter() - t0
+    if callable(clf):
+        clf = clf()
     return {"results": results, "dt": dt, "calls": calls, "first": first,
             "launches": dp_cuda.launches, "plain": dp_cuda.plain_cuda_calls,
             "counts": variant_counts(dp_cuda),
             "dispatches": clf.timer.counts["dispatch"],
             "peak": torch.cuda.max_memory_allocated(), "base": base,
-            "reader": clf.reader}
+            "reader": clf.reader, "timer": clf.timer}
 
 
-def check_path(name, r, n_reads, src, dp_cuda, card, unit="reads"):
-    """The checks every path shares: result count, launches counted where
-    the kernel launched and nowhere else, the plain DP never on the card,
-    variant by cap, >= 95% of reads at source species or genus."""
-    results, calls, counts = r["results"], r["calls"], r["counts"]
-    assert len(results) == n_reads, (name, len(results))
+def check_launches(name, r, dp_cuda):
+    """Launches counted where the kernel launched and nowhere else, the
+    plain DP never on the card, each launch at the variant its cap
+    selects."""
+    calls, counts = r["calls"], r["counts"]
     assert r["launches"] == len(calls), (name, r["launches"], len(calls))
     assert r["plain"] == 0, f"{name}: the plain DP ran on the card"
     n_small = sum(c[0] <= dp_cuda.WARP_MAX_CAP for c in calls)
@@ -650,13 +699,25 @@ def check_path(name, r, n_reads, src, dp_cuda, card, unit="reads"):
     assert counts["warp"] == n_small, \
         f"{name}: a launch at cap <= 32 did not go to the warp variant"
     assert counts["block"] == r["launches"] - n_small
+
+
+def check_path(name, r, n_reads, src, dp_cuda, card, unit="reads",
+               species=None, genus=None, min_right=0.95):
+    """The checks every path shares: result count, check_launches, >= 95%
+    of reads at source species or genus (the internal ids of the smoke
+    taxonomy's unless given)."""
+    results = r["results"]
+    assert len(results) == n_reads, (name, len(results))
+    check_launches(name, r, dp_cuda)
     cls = np.array([q.result.classification for q in results])
-    species, genus = 4 + src, 2 + src % 2
+    if species is None:
+        species, genus = 4 + src, 2 + src % 2
     right = float(np.mean((cls == species) | (cls == genus)))
     print(f"{name}: {n_reads} {unit}, {r['launches']} kernel launches, "
           f"{right * 100:.2f}% at source species or genus, "
           f"{float(np.mean(cls == species)) * 100:.2f}% at species")
-    assert right >= 0.95, f"{name}: only {right:.4f} classified correctly"
+    assert right >= min_right, \
+        f"{name}: only {right:.4f} classified correctly"
     print(f"{name}: {n_reads / r['dt']:.1f} {unit}/s ({r['dt']:.3f} s for "
           f"{n_reads} {unit}); peak device memory "
           f"{r['peak'] / 2**30:.3f} GiB, {r['base'] / 2**30:.3f} GiB of it "
@@ -958,6 +1019,462 @@ def cli_phase(fa, reads, ref_dir, em_results, taxonomy, card):
     return stdout.split()
 
 
+# ------------------------------------ ORF build, updateDB, accession level
+def gene_genome(rng, length):
+    """`length` bases of bacterium-like sequence (uint8): genes of
+    300-1,500 bp (ATG, stop-free random codons, a stop) on either strand
+    between intergenic spacers of 50-300 bp (skewed short, so about 88%
+    of the sequence is coding); returns (bases, coding share)."""
+    parts, n, coding = [], 0, 0
+    while n < length:
+        sp = 50 + int(250 * rng.random() ** 2.5)
+        parts.append(ACGT[rng.integers(0, 4, size=sp)])
+        body = _SENSE[rng.integers(0, len(_SENSE),
+                                   size=int(rng.integers(98, 499)))]
+        gene = np.concatenate([_ATG, body.reshape(-1),
+                               _STOPS[rng.integers(0, 3)]])
+        if rng.random() < 0.5:
+            gene = _COMP[gene[::-1]]
+        parts.append(gene)
+        n += sp + len(gene)
+        coding += len(gene)
+    return np.concatenate(parts)[:length], coding / n
+
+
+def write_taxdump(d, tax, extra=()):
+    """nodes.dmp / names.dmp / merged.dmp of `tax` (original ids) plus
+    `extra` rows (taxid, parent taxid, rank, name)."""
+    os.makedirs(d, exist_ok=True)
+    rows = [(int(tax.orig_of(i)), int(tax.orig_of(int(tax.parent[i]))),
+             tax.rank_of(i), tax.name_of(i))
+            for i in range(1, tax.num_nodes())] + list(extra)
+    with open(os.path.join(d, "nodes.dmp"), "w") as f:
+        f.writelines(f"{t}\t|\t{p}\t|\t{r}\t|\n" for t, p, r, _ in rows)
+    with open(os.path.join(d, "names.dmp"), "w") as f:
+        f.writelines(f"{t}\t|\t{n}\t|\t\t|\tscientific name\t|\n"
+                     for t, _, _, n in rows)
+    open(os.path.join(d, "merged.dmp"), "w").close()
+
+
+def write_build_inputs(fa, tag, seqs, taxids, tax, extra=()):
+    """FASTA, FASTA list, acc2taxid and taxdump of (name, bases) records;
+    returns (fasta list, acc2taxid, taxdump dir)."""
+    with open(fa(f"{tag}.fna"), "w") as f:
+        for name, s in seqs:
+            f.write(f">{name}\n")
+            f.write(s.tobytes().decode())
+            f.write("\n")
+    with open(fa(f"{tag}.txt"), "w") as f:
+        f.write(fa(f"{tag}.fna") + "\n")
+    with open(fa(f"{tag}.map"), "w") as f:
+        f.write("accession\taccession.version\ttaxid\tgi\n")
+        for (name, _), t in zip(seqs, taxids):
+            f.write(f"{name}\t{name}.1\t{t}\t0\n")
+    write_taxdump(fa(f"{tag}_taxdump"), tax, extra)
+    return fa(f"{tag}.txt"), fa(f"{tag}.map"), fa(f"{tag}_taxdump")
+
+
+def predictor_line():
+    from metabuli_work_tpu_torch.index import prodigal
+
+    if prodigal.available():
+        return "prodigal (the vendored Prodigal library built)"
+    why = [ln.strip() for ln in prodigal.unavailable_reason().splitlines()
+           if "error" in ln] or [prodigal.unavailable_reason()]
+    return (f"heuristic (index/orf.py): libprodigal.so cannot be built "
+            f"({why[0][:160]})")
+
+
+def build_or_load_orf_db(fa):
+    """ORF_GENOMES gene-structured genomes of GENOME_LEN in two genera
+    (3.5% mutations per species), built by build_database with
+    orf_prediction=True, gene_predictor="auto" (syncmer, no mask), cached
+    under ~/.cache by config key; returns (db dir, genomes, cache hit,
+    info: build seconds, k-mers, predictor, share of genome bases inside
+    predicted blocks, coding share of the genes)."""
+    from metabuli_work_tpu_torch.index.builder import build_database
+    from metabuli_work_tpu_torch.index.orf import predict_orfs
+    from metabuli_work_tpu_torch.taxonomy import Taxonomy
+
+    rng = np.random.default_rng(10)
+    bases = [gene_genome(rng, GENOME_LEN) for _ in range(2)]
+    genomes = []
+    for i in range(ORF_GENOMES):
+        g = bases[i % 2][0].copy()
+        mut = rng.random(GENOME_LEN) < 0.035
+        g[mut] = ACGT[rng.integers(0, 4, size=int(mut.sum()))]
+        genomes.append(g)
+    cache = os.path.join(os.path.expanduser("~/.cache"),
+                         f"mwt_torch_smoke_orf_db_{ORF_GENOMES}_{GENOME_LEN}")
+    info_p = os.path.join(cache, "smoke.json")
+    if os.path.exists(info_p):
+        with open(info_p) as f:
+            return cache, genomes, True, json.load(f)
+    lst, acc, taxdump = write_build_inputs(
+        fa, "orf", [(f"ORF{i}", g) for i, g in enumerate(genomes)],
+        [1000 + i for i in range(ORF_GENOMES)],
+        smoke_taxonomy(Taxonomy))
+    tmp = cache + ".tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    index = build_database(tmp, lst, acc, taxdump, syncmer=True, mask_mode=0,
+                           orf_prediction=True, gene_predictor="auto",
+                           threads=min(ORF_GENOMES, os.cpu_count() or 1))
+    info = {"build_s": time.perf_counter() - t0, "kmers": int(index.size),
+            "predictor": predictor_line(),
+            "coding": float(np.mean([b[1] for b in bases]))}
+    covered = 0
+    for g in genomes:
+        inside = np.zeros(len(g) + 1, np.int32)
+        for b, e, _ in predict_orfs(g.tobytes().decode()):
+            inside[b] += 1
+            inside[e + 1] -= 1
+        covered += int((np.cumsum(inside[:-1]) > 0).sum())
+    info["covered"] = covered / (ORF_GENOMES * GENOME_LEN)
+    with open(os.path.join(tmp, "smoke.json"), "w") as f:
+        json.dump(info, f)
+    shutil.rmtree(cache, ignore_errors=True)
+    os.replace(tmp, cache)
+    return cache, genomes, False, info
+
+
+def expected_ids(tax, species_orig, genus_orig):
+    """Internal ids of original species / genus ids (arrays)."""
+    to = np.vectorize(tax.to_internal, otypes=[np.int64])
+    return to(species_orig), to(genus_orig)
+
+
+def orf_phase(dp_cuda, classifier_at, fa, runs, n_main, card):
+    """The ORF DB (built or cached), then N_READS single-end reads of its
+    genomes through Classifier(db, device="cuda"), 256 held against the
+    CPU run."""
+    name = "orf build"
+    db, genomes, hit, info = build_or_load_orf_db(fa)
+    print(f"{name}: gene predictor {info['predictor']}")
+    print(f"{name}: {ORF_GENOMES} gene-structured genomes x {GENOME_LEN} bp "
+          f"(genes {100 * info['coding']:.2f}% of the bases): "
+          f"build_database(orf_prediction=True, gene_predictor='auto') "
+          f"{info['build_s']:.1f} s{' (cached)' if hit else ''}, "
+          f"{info['kmers']} k-mers (the 6-frame smoke DB of random genomes: "
+          f"{n_main}); {100 * info['covered']:.2f}% of genome bases inside "
+          f"predicted blocks")
+    G = np.stack(genomes)
+    reads, src = simulate_reads(G, np.random.default_rng(11), N_READS,
+                                READ_LEN)
+    write_fasta(fa("orf_reads.fna"), reads)
+    write_fasta(fa("orf_warm.fna"), reads[:BATCH])
+    write_fasta(fa("orf_cpu.fna"), reads[:N_CPU_CHECK])
+    t0 = time.perf_counter()
+    clf = classifier_at(db)
+    setup = time.perf_counter() - t0
+    clf.classify_file(fa("orf_warm.fna"))
+    r = runs[name] = drive(dp_cuda, clf,
+                           lambda: clf.classify_file(fa("orf_reads.fna")))
+    assert r["launches"] > 0, f"{name}: no path-DP launch"
+    sp, ge = expected_ids(clf.taxonomy, 1000 + src, 101 + src % 2)
+    check_path(name, r, N_READS, src, dp_cuda, card, species=sp, genus=ge,
+               min_right=ORF_MIN_RIGHT)
+    print(f"{name}: classifier setup (pack + upload) {setup:.1f} s")
+    stage_table(name, clf, card)
+    cpu_check(name, r["results"][:N_CPU_CHECK], classifier_at(db, "cpu")
+              .classify_file(fa("orf_cpu.fna")))
+    clf = None
+    torch.cuda.empty_cache()
+
+
+NINTH_TAXA = ((103, 1, "genus", "G3"), (1008, 103, "species", "Species8"))
+
+
+def update_phase(dp_cuda, index, classifier_at, fa, reads, runs, card):
+    """The smoke index saved as a native DB; update_database adds a ninth
+    genome (NINTH_LEN of random bases) under a new genus and species
+    grafted by a new-taxa TSV; the single-end reads plus N_NINTH reads of
+    the ninth genome classified on the updated DB on the card.  Returns
+    the paths and reads the later phases use."""
+    from metabuli_work_tpu_torch.index.format import save_index
+    from metabuli_work_tpu_torch.index.update import update_database
+
+    name = "updateDB"
+    rng = np.random.default_rng(20)
+    ninth = ACGT[rng.integers(0, 4, size=NINTH_LEN)]
+    nr, nstart = simulate_reads_at(ninth, np.random.default_rng(21), N_NINTH)
+    old, new = fa("main_db"), fa("updated_db")
+    t0 = time.perf_counter()
+    save_index(old, index)
+    t_save = time.perf_counter() - t0
+    with open(fa("ninth.fna"), "w") as f:
+        f.write(f">NINTH\n{ninth.tobytes().decode()}\n")
+    with open(fa("ninth.txt"), "w") as f:
+        f.write(fa("ninth.fna") + "\n")
+    with open(fa("ninth.map"), "w") as f:
+        f.write("accession\taccession.version\ttaxid\tgi\nNINTH\tNINTH.1\t"
+                "1008\t0\n")
+    with open(fa("new_taxa.tsv"), "w") as f:
+        f.writelines(f"{t}\t{p}\t{r}\t{n}\n" for t, p, r, n in NINTH_TAXA)
+    t0 = time.perf_counter()
+    upd = update_database(old, new, fa("ninth.txt"), fa("ninth.map"),
+                          new_taxa_path=fa("new_taxa.tsv"))
+    t_upd = time.perf_counter() - t0
+    print(f"{name}: update_database added a {NINTH_LEN}-bp genome under a "
+          f"new genus and species (--new-taxa) to the {index.size}-entry "
+          f"smoke DB in {t_upd:.1f} s ({upd.size} entries; saving the old "
+          f"DB took {t_save:.1f} s); on {card}")
+    mixed = np.concatenate([reads, nr])
+    write_fasta(fa("mixed.fna"), mixed)
+    half = N_CPU_CHECK // 2
+    write_fasta(fa("mixed_cpu.fna"), np.concatenate([reads[:half],
+                                                     nr[:half]]))
+    cpu_rows = list(range(half)) + list(range(N_READS, N_READS + half))
+    t0 = time.perf_counter()
+    clf = classifier_at(new)
+    setup = time.perf_counter() - t0
+    clf.classify_file(fa("warm.fna"))
+    r = runs[name] = drive(dp_cuda, clf,
+                           lambda: clf.classify_file(fa("mixed.fna")))
+    assert r["launches"] > 0, f"{name}: no path-DP launch"
+    tax = clf.taxonomy
+    res = r["results"]
+    on_ninth = np.array([tax.orig_of(q.result.classification) == 1008
+                         for q in res[N_READS:]])
+    se = runs["single-end"]["results"]
+    changed = sum(a != b for a, b in zip(tuples(res[:N_READS]), tuples(se)))
+    print(f"{name}: {len(res)} reads ({N_READS} single-end + {N_NINTH} of "
+          f"the ninth genome), {r['launches']} kernel launches; "
+          f"{100 * on_ninth.mean():.2f}% of the ninth genome's reads at its "
+          f"species; {changed} of the {N_READS} single-end reads differ "
+          f"from the resident run's (an observation); "
+          f"{len(res) / r['dt']:.1f} reads/s; classifier setup (pack + "
+          f"upload) {setup:.1f} s; peak device memory "
+          f"{(r['peak'] - r['base']) / 2**30:.3f} GiB above the run's "
+          f"start; read with the {r['reader']} reader; on {card}")
+    check_launches(name, r, dp_cuda)
+    assert on_ninth.mean() >= 0.95, \
+        f"{name}: only {on_ninth.mean():.4f} of the ninth genome's reads " \
+        f"at its species"
+    stage_table(name, clf, card)
+    cpu_check(name, [res[i] for i in cpu_rows],
+              classifier_at(new, "cpu").classify_file(fa("mixed_cpu.fna")))
+    clf = None
+    torch.cuda.empty_cache()
+    return {"db": new, "ninth": ninth, "starts": nstart,
+            "cpu_rows": cpu_rows}
+
+
+def simulate_reads_at(g, rng, n):
+    """n reads of READ_LEN bases of one genome (1% errors, half reverse-
+    complemented); returns (reads, the start of each in the genome)."""
+    starts = rng.integers(0, len(g) - READ_LEN, size=n)
+    reads = g[starts[:, None] + np.arange(READ_LEN)[None, :]]
+    err = rng.random(reads.shape) < 0.01
+    reads[err] = ACGT[rng.integers(0, 4, size=int(err.sum()))]
+    rc = rng.random(n) < 0.5
+    reads[rc] = _COMP[reads[rc, ::-1]]
+    return np.ascontiguousarray(reads), starts
+
+
+def accession_phase(dp_cuda, classifier_at, fa, upd, runs, card):
+    """The ninth genome built alone as two accessions of NINTH_LEN / 2
+    under its species with accession_level=True; the mixed reads (the
+    single-end reads, then the ninth genome's) classified on it on the
+    card; the share of the ninth genome's reads called at the accession
+    that holds them."""
+    from metabuli_work_tpu_torch.index.builder import build_database
+    from metabuli_work_tpu_torch.taxonomy import Taxonomy
+
+    name = "accession-level"
+    # cut at a multiple of 3: the second accession then ends in the same
+    # frame phase as the whole genome, whose frames extraction covers
+    # over max_covered_length, so both accessions' k-mers are the whole
+    # genome's (a cut at 2,000,000 adds a few tail windows of its own)
+    half = NINTH_LEN // 2 // 3 * 3
+    ninth = upd["ninth"]
+    lst, acc, taxdump = write_build_inputs(
+        fa, "acc", [("NINTH_A", ninth[:half]), ("NINTH_B", ninth[half:])],
+        [1008, 1008], smoke_taxonomy(Taxonomy), NINTH_TAXA)
+    db = fa("acc_db")
+    t0 = time.perf_counter()
+    index = build_database(db, lst, acc, taxdump, syncmer=True, mask_mode=0,
+                           accession_level=True)
+    t_build = time.perf_counter() - t0
+    with open(os.path.join(db, "accession2index")) as f:
+        acc_taxid = {a: int(t) for a, t in
+                     (ln.split("\t") for ln in f.read().splitlines())}
+    clf = classifier_at(db)
+    assert clf.taxonomer.accession_level == 1
+    clf.classify_file(fa("warm.fna"))
+    r = runs[name] = drive(dp_cuda, clf,
+                           lambda: clf.classify_file(fa("mixed.fna")))
+    assert r["launches"] > 0, f"{name}: no path-DP launch"
+    res = r["results"]
+    tax = clf.taxonomy
+    want = np.where(upd["starts"] < half, acc_taxid["NINTH_A"],
+                    acc_taxid["NINTH_B"])
+    got = np.array([tax.orig_of(q.result.classification)
+                    for q in res[N_READS:]])
+    at_species = np.mean(got == 1008)
+    hits = np.mean(got == want)
+    others = np.mean([q.result.is_classified for q in res[:N_READS]])
+    print(f"{name}: built {index.size} entries (2 accessions of {half} bp) "
+          f"in {t_build:.1f} s; {len(res)} reads, {r['launches']} kernel "
+          f"launches; {100 * hits:.2f}% of the ninth genome's reads called "
+          f"at the accession that holds them, {100 * at_species:.2f}% at "
+          f"its species; {100 * others:.3f}% of the other reads classified; "
+          f"{len(res) / r['dt']:.1f} reads/s; read with the {r['reader']} "
+          f"reader; on {card}")
+    check_launches(name, r, dp_cuda)
+    stage_table(name, clf, card)
+    cpu_check(name, [res[i] for i in upd["cpu_rows"]],
+              classifier_at(db, "cpu").classify_file(fa("mixed_cpu.fna")))
+    clf = None
+    torch.cuda.empty_cache()
+    return {"db": db, "classified": {q.name for q in res
+                                     if q.result.is_classified},
+            "distinct": len(np.unique(index.values))}
+
+
+def filter_phase(dp_cuda, fa, acc, runs, card):
+    """filter_reads of the mixed reads with the accession-level DB as the
+    contaminant list, on the card: the removed reads are exactly those
+    the accession-level phase classified (same parameters); >= 95% of
+    the ninth genome's reads removed, <= 1% of the others; 256 reads'
+    split equal to the CPU run's."""
+    from metabuli_work_tpu_torch.classify import filter as filter_mod
+    from metabuli_work_tpu_torch.classify.pipeline import ClassifyParams
+
+    name = "filter"
+    made = []
+
+    class Recorded(filter_mod.Classifier):
+        """filter_reads' classifier, kept for its stage timer and reader."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    params = ClassifyParams(seq_mode=1, batch_size=BATCH, **SHORT)
+
+    def run(reads_path, out, device):
+        paths = filter_mod.filter_reads(reads_path, [acc["db"]], out, "job",
+                                        params, device=device)
+        removed = {ln[1:].split()[0] for ln in open(paths[0][1])
+                   if ln.startswith(">")}
+        kept = {ln[1:].split()[0] for ln in open(paths[0][0])
+                if ln.startswith(">")}
+        return removed, kept
+
+    plain = filter_mod.Classifier
+    filter_mod.Classifier = Recorded
+    try:
+        r = runs[name] = drive(dp_cuda, lambda: made[-1], lambda: run(
+            fa("mixed.fna"), fa("filter_out"), "cuda"))
+        made.clear()
+        cpu_removed, _ = run(fa("mixed_cpu.fna"), fa("filter_cpu"), "cpu")
+    finally:
+        filter_mod.Classifier = plain
+    made.clear()
+    removed, kept = r["results"]
+    assert r["launches"] > 0, f"{name}: no path-DP launch"
+    assert len(removed) + len(kept) == N_READS + N_NINTH
+    assert removed == acc["classified"], \
+        f"{name}: the removed reads differ from the accession-level " \
+        f"phase's classified reads"
+    ninth = {f"r{i}" for i in range(N_READS, N_READS + N_NINTH)}
+    share_ninth = len(removed & ninth) / N_NINTH
+    share_other = len(removed - ninth) / N_READS
+    print(f"{name}: {N_READS + N_NINTH} reads against the accession-level "
+          f"DB: removed {len(removed)} (exactly the reads the "
+          f"accession-level phase classified), "
+          f"{100 * share_ninth:.2f}% of the ninth genome's, "
+          f"{100 * share_other:.3f}% of the others; "
+          f"{(N_READS + N_NINTH) / r['dt']:.1f} reads/s with the split; "
+          f"read with the {r['reader']} reader; on {card}")
+    check_launches(name, r, dp_cuda)
+    assert share_ninth >= 0.95 and share_other <= 0.01, (share_ninth,
+                                                         share_other)
+    print(f"{name} stage timer (host seconds) on {card}:")
+    print(r["timer"].report())
+    half = N_CPU_CHECK // 2
+    rows = [f"r{i}" for i in range(half)] + \
+        [f"r{i}" for i in range(N_READS, N_READS + half)]
+    # the CPU file numbers its reads 0..255
+    gpu_split = [name_ in removed for name_ in rows]
+    cpu_split = [f"r{i}" in cpu_removed for i in range(N_CPU_CHECK)]
+    same_as(f"{name} CPU check", "the CPU run's split", gpu_split,
+            cpu_split)
+    return removed
+
+
+def cli_tools_phase(fa, src, ref_dir, upd, acc, removed, card):
+    """The CLI's new subcommands as subprocesses, on the card: filter of
+    N_CLI of the mixed reads (its split equal to the API filter's),
+    grade of the cli phase's classifications against the simulated
+    answer sheet (F1 at species and genus), taxdump of the updated DB,
+    count-common-kmers of the accession-level DB against the updated DB
+    (shared = the accession-level DB's distinct values: both extract with
+    the same parameters)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cli = [sys.executable, "-m", "metabuli_work_tpu_torch.cli"]
+
+    def run(argv, timeout=900):
+        t0 = time.perf_counter()
+        p = subprocess.run(cli + argv, capture_output=True, text=True,
+                           cwd=root, timeout=timeout)
+        dt = time.perf_counter() - t0
+        shown = argv[:1] + [os.path.basename(a) for a in argv[1:]]
+        print(f"cli: {' '.join(shown)} -> exit {p.returncode} in {dt:.1f} s")
+        assert p.returncode == 0, f"cli {argv[0]}:\n{p.stdout[-3000:]}" \
+                                  f"{p.stderr[-3000:]}"
+        return p.stdout
+
+    half = N_CLI // 2
+    picked = list(range(half)) + list(range(N_READS, N_READS + half))
+    with open(fa("mixed.fna")) as f:
+        lines = f.read().splitlines()
+    with open(fa("cli_filter.fq"), "w") as f:
+        for i in picked:
+            seq = lines[2 * i + 1]
+            f.write(f"@r{i}\n{seq}\n+\n{'I' * len(seq)}\n")
+    with open(fa("contam.txt"), "w") as f:
+        f.write(acc["db"] + "\n")
+    out = run(["filter", fa("cli_filter.fq"), fa("cli_filter"), "job",
+               "--contam-list", fa("contam.txt"), "--seq-mode", "1",
+               "--batch-size", str(BATCH), "--min-score",
+               str(SHORT["min_score"]), "--min-sp-score",
+               str(SHORT["min_sp_score"]), "--device", "cuda"])
+    print(f"  {out.strip()}")
+    got = {ln[1:].split()[0] for k, ln in enumerate(
+        open(os.path.join(fa("cli_filter"), "job_1_removed.fq")))
+        if k % 4 == 0}
+    want = {f"r{i}" for i in picked} & removed
+    assert got == want, "cli filter: the split differs from the API run's"
+    print(f"cli: filter of {N_CLI} FASTQ reads removed {len(got)}, the API "
+          f"filter's reads among them exactly; on {card}")
+    with open(fa("answers.tsv"), "w") as f:
+        f.writelines(f"r{i}\t{1000 + int(s)}\n"
+                     for i, s in enumerate(src[:N_CLI]))
+    out = run(["grade", os.path.join(fa("cli_out"), "job_classifications.tsv"),
+               fa("answers.tsv"), ref_dir])
+    f1 = {}
+    for ln in out.splitlines():
+        parts = ln.split("\t")
+        if parts[0] in ("species", "genus"):
+            f1[parts[0]] = float(parts[3])
+            print(f"  {ln}")
+    print(f"cli: grade of the cli phase's {N_CLI} classifications: F1 "
+          f"{f1['species']:.4f} at species, {f1['genus']:.4f} at genus")
+    assert f1["genus"] >= 0.9, f1
+    run(["taxdump", upd["db"], fa("taxdump_out")])
+    with open(os.path.join(fa("taxdump_out"), "nodes.dmp")) as f:
+        assert "1008\t|\t103\t|\tspecies" in f.read()
+    out = run(["count-common-kmers", acc["db"], upd["db"]])
+    print(f"  {out.strip()}")
+    a, b, shared = (int(x.split("=")[1]) for x in out.split()[1:4])
+    assert shared == a == acc["distinct"], (a, b, shared)
+    print(f"cli: count-common-kmers: every one of the accession-level DB's "
+          f"{a} distinct values is in the updated DB ({b} distinct); on "
+          f"{card}")
+
+
 def dist_worker(argv):
     """One process of the distributed path: rank, port, reads, warm-up
     reads, output JSON (see the module docstring)."""
@@ -1045,7 +1562,7 @@ def main(argv=()):
           f"({'cache hit' if hit else 'built'}, "
           f"{time.perf_counter() - t0:.1f} s)")
     G = genome_matrix(genomes)
-    short = dict(min_score=0.15, min_sp_score=0.5)
+    short = SHORT
     long_kw = dict(seq_mode=3, min_score=0.008, min_sp_score=0.0)
 
     def classifier(device="cuda", mesh=None, **kw):
@@ -1532,6 +2049,32 @@ def main(argv=()):
         head = cli_phase(fa, reads, ref_dirs["diffIdx"],
                          runs["em"]["results"], index.taxonomy, card)
         assert head == [str(v) for v in index.values[:5]], head
+        torch.cuda.empty_cache()
+
+        # ---- ORF build, updateDB, accession level, filter, the CLI's
+        # tools (after every earlier path, so those run as they did)
+        def classifier_at(d, device="cuda"):
+            return Classifier(d, ClassifyParams(
+                seq_mode=1, batch_size=BATCH if device == "cuda"
+                else N_CPU_CHECK, **short), device=device)
+
+        took = [time.perf_counter()]
+        orf_phase(dp_cuda, classifier_at, fa, runs, index.size, card)
+        took.append(time.perf_counter())
+        upd = update_phase(dp_cuda, index, classifier_at, fa, reads, runs,
+                           card)
+        took.append(time.perf_counter())
+        acc = accession_phase(dp_cuda, classifier_at, fa, upd, runs, card)
+        took.append(time.perf_counter())
+        removed = filter_phase(dp_cuda, fa, acc, runs, card)
+        took.append(time.perf_counter())
+        cli_tools_phase(fa, src, ref_dirs["diffIdx"], upd, acc, removed,
+                        card)
+        took.append(time.perf_counter())
+        print("phase seconds: " + ", ".join(
+            f"{n} {b - a:.1f}" for n, a, b in zip(
+                ("orf build", "updateDB", "accession-level", "filter",
+                 "cli tools"), took, took[1:])))
         torch.cuda.empty_cache()
 
     # ------------------------------- main-path parity and kernel timings

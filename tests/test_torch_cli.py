@@ -1,14 +1,20 @@
-"""The torch package's CLI against the JAX package's: the database
-subcommands (convertDB, validatedb, database-report, printDeltaIdx,
-printInfo, expand_diffidx) and validate-input print the same text and
-exit with the same code on the same DB; build --reference-format writes
-the same files; classify accepts the JAX-only flags (its files equal
-JAX's on a reference-format DB, --em and --validate-input included),
-refuses --reduced-aa 1, and --profile-dir writes a torch.profiler trace
-on the CPU."""
+"""The torch package's CLI against the JAX package's: every subcommand
+of the port but classify (the database subcommands, build with its
+flags, updateDB, filter, taxdump, databases, the taxonomy tools and the
+report and grading tools) prints the same text, exits with the same code
+and writes the same files as JAX's on the same inputs; build
+--reference-format writes the same files; classify accepts the JAX-only
+flags (its files equal JAX's on a reference-format DB, --em and
+--validate-input included), refuses --reduced-aa 1, and --profile-dir
+writes a torch.profiler trace on the CPU; `databases` downloads and
+unpacks an archive from a local HTTP server, resuming a part file."""
 
+import io
 import os
+import re
 import shutil
+import tarfile
+import threading
 
 import numpy as np
 import pytest
@@ -17,7 +23,8 @@ from metabuli_work_tpu import cli as jcli
 from metabuli_work_tpu_torch import cli as tcli
 from metabuli_work_tpu_torch.index.format import load_index
 
-from torch_port_db import simulate_reads, write_inputs, write_taxonomy_blob
+from torch_port_db import (gene_genome, simulate_reads, write_inputs,
+                           write_taxonomy_blob, write_tool_inputs)
 
 
 @pytest.fixture(scope="module")
@@ -52,6 +59,35 @@ def dbs(tmp_path_factory):
     dirs["bad"] = os.path.join(root, "bad.fq")
     with open(dirs["bad"], "w") as f:
         f.write("@r1\nACGT\n+\nIII\n")
+    dirs.update(fastas=p["fastas"], acc2taxid=p["acc2taxid"])
+    # the tools' inputs, under tools/ (as T_<name>), over the torch DB
+    tools = {"root": os.path.join(root, "tools"), "db": dirs["tdb"]}
+    os.makedirs(tools["root"])
+    write_tool_inputs(tools, genomes)
+    dirs.update({f"T_{k}": v for k, v in tools.items()})
+    for who in "jt":     # extract writes beside its read file
+        shutil.copy(tools["reads_fq"], os.path.join(root, f"{who}_reads.fq"))
+    with open(os.path.join(root, "contam.txt"), "w") as f:
+        f.write(dirs["tdb"] + "\n")
+    dirs["contam"] = os.path.join(root, "contam.txt")
+    # build flags: CDS spans, and a new genome with a new species for
+    # updateDB --new-taxa
+    dirs["cds"] = os.path.join(root, "cds.tsv")
+    with open(dirs["cds"], "w") as f:
+        f.write("ACC0\t10\t900\t+\nACC2\t300\t1700\t-\n")
+    new = gene_genome(np.random.default_rng(44), 4000)
+    with open(os.path.join(root, "new.fna"), "w") as f:
+        f.write(f">NEW1.1\n{new}\n")
+    dirs["new_fastas"] = os.path.join(root, "new.txt")
+    with open(dirs["new_fastas"], "w") as f:
+        f.write(os.path.join(root, "new.fna") + "\n")
+    dirs["new_map"] = os.path.join(root, "new.map")
+    with open(dirs["new_map"], "w") as f:
+        f.write("accession\taccession.version\ttaxid\tgi\n"
+                "NEW1\tNEW1.1\t20\t0\n")
+    dirs["new_taxa"] = os.path.join(root, "new_taxa.tsv")
+    with open(dirs["new_taxa"], "w") as f:
+        f.write("20\t3\tspecies\tSp20\n")
     return root, dirs
 
 
@@ -89,7 +125,117 @@ SUBCOMMANDS = [
                    "--output", "{root}/{jt}conv"]),
     ("validate-input-ok", ["validate-input", "{reads}"]),
     ("validate-input-bad", ["validate-input", "{bad}"]),
+    ("build-orf-cds-accession", [
+        "build", "{root}/{jt}orfdb", "{fastas}", "{acc2taxid}",
+        "--taxonomy-dir", "{taxdump}", "--syncmer", "1", "--mask", "0",
+        "--orf-prediction", "--gene-predictor", "heuristic", "--cds-info",
+        "{cds}", "--accession-level", "1"]),
+    ("build-auto-resume", [
+        "build", "{root}/{jt}autodb", "{fastas}", "{acc2taxid}",
+        "--taxonomy-dir", "{taxdump}", "--mask", "0", "--orf-prediction",
+        "--resume"]),
+    ("updateDB", ["updateDB", "{root}/{jt}upd", "{tdb}", "{new_fastas}",
+                  "{new_map}", "--new-taxa", "{new_taxa}"]),
+    ("updateDB-unknown-taxon", ["updateDB", "{root}/{jt}upd0", "{tdb}",
+                                "{new_fastas}", "{new_map}"]),
+    ("filter", ["filter", "{T_reads_fq}", "{root}/{jt}filter", "job",
+                "--contam-list", "{contam}", "--seq-mode", "1",
+                "--min-score", "0.15", "--batch-size", "8",
+                "--device=cpu"]),
+    ("taxdump", ["taxdump", "{tdb}", "{root}/{jt}taxdump"]),
+    ("databases-list", ["databases"]),
+    ("databases-unknown", ["databases", "nope", "{root}/{jt}nodb"]),
+    ("extract", ["extract", "{T_cls}", "{root}/{jt}_reads.fq", "{tdb}",
+                 "--tax-id", "2"]),
+    ("extract-fasta", ["extract", "{T_cls}", "{root}/{jt}_reads.fq",
+                       "{tdb}", "--tax-id", "11", "--extract-mode", "1"]),
+    ("grade", ["grade", "{T_cls}", "{T_answer}", "{tdb}"]),
+    ("grade-ranks", ["grade", "{T_cls}", "{T_answer}", "{tdb}", "--ranks",
+                     "genus,species"]),
+    ("classifiedRefiner", ["classifiedRefiner", "{T_cls}", "{tdb}",
+                           "--output", "{root}/{jt}refined.tsv",
+                           "--min-score", "0.2", "--include", "2,3",
+                           "--exclude", "13", "--rank", "genus"]),
+    ("ictv-format", ["ictv-format", "{T_ictv}", "{root}/{jt}ictv"]),
+    ("make-virus-benchmark-set", [
+        "make-virus-benchmark-set", "{T_assemblies}", "{tdb}",
+        "{root}/{jt}virus", "--rank", "species", "--random-seed", "3"]),
+    ("gtdb2taxdump", ["gtdb2taxdump", "{T_gtdb1}", "{T_gtdb2}", "--outdir",
+                      "{root}/{jt}gtdb", "--start-taxid", "700"]),
+    ("editNames", ["editNames", "{T_names}", "{root}/{jt}names.dmp",
+                   "--replacements", "{T_repl}"]),
+    ("createnewtaxalist", ["createnewtaxalist", "{T_fastas_new}",
+                           "{T_acc2taxid_new}", "{root}/{jt}newtaxa.tsv",
+                           "--taxonomy-dir", "{taxdump}"]),
+    ("query2reference", ["query2reference", "{T_cls_clean}", "{acc2taxid}",
+                         "{root}/{jt}q2r.tsv"]),
+    ("filter_by_genus", ["filter_by_genus", "{T_cls}", "{tdb}",
+                         "{root}/{jt}genus.tsv", "--genera", "2,3"]),
+    ("count-common-kmers", ["count-common-kmers", "{tdb}", "{T_db}"]),
+    ("makeAAoffset", ["makeAAoffset", "{tdb}", "--output",
+                      "{root}/{jt}aa.npy"]),
+    ("maketestsets", ["maketestsets", "{T_assemblies}", "{tdb}",
+                      "{root}/{jt}sets", "--rank", "species"]),
+    ("makeInclusionTestQueries", ["makeInclusionTestQueries",
+                                  "{T_assemblies}", "{root}/{jt}incl",
+                                  "--fraction", "0.5"]),
+    ("gradeGroup", ["gradeGroup", "{T_groups}", "{T_answer}", "{tdb}"]),
+    ("gradeGroupByCoverage", ["gradeGroupByCoverage", "{T_groups}",
+                              "{T_answer}", "{tdb}", "{T_strata}"]),
+    ("gradeByCoverage", ["gradeByCoverage", "{T_cls}", "{T_answer}",
+                         "{tdb}", "{T_strata}"]),
+    ("gradeByCladeSize", ["gradeByCladeSize", "{T_cls}", "{T_answer}",
+                          "{tdb}", "{T_strata}", "--ranks", "species"]),
+    ("mapping2taxon", ["mapping2taxon", "{T_mapping}", "{tdb}",
+                       "{root}/{jt}m2t.tsv", "--rank", "genus"]),
+    ("accession2taxid", ["accession2taxid", "{fastas}", "{root}/{jt}a2t.map",
+                         "--mappings", "{acc2taxid}", "{T_acc2taxid_new}"]),
 ]
+
+# files (and directories, every file under them) each case writes; each
+# is held byte-equal between the two CLIs' runs
+WRITES = {
+    "build-orf-cds-accession": ["orfdb/kmers.npy", "orfdb/infos.npy",
+                                "orfdb/species.npy", "orfdb/acc2taxid.map",
+                                "orfdb/accession2index"],
+    "build-auto-resume": ["autodb/kmers.npy", "autodb/infos.npy"],
+    "updateDB": ["upd/kmers.npy", "upd/infos.npy", "upd/species.npy",
+                 "upd/acc2taxid.map", "upd/taxID_list"],
+    "filter": ["filter"],
+    "taxdump": ["taxdump"],
+    "extract": ["_reads_2.fq"],
+    "extract-fasta": ["_reads_11.fna"],
+    "classifiedRefiner": ["refined.tsv"],
+    "ictv-format": ["ictv"],
+    "make-virus-benchmark-set": ["virus"],
+    "gtdb2taxdump": ["gtdb"],
+    "editNames": ["names.dmp"],
+    "createnewtaxalist": ["newtaxa.tsv"],
+    "query2reference": ["q2r.tsv"],
+    "filter_by_genus": ["genus.tsv"],
+    "makeAAoffset": ["aa.npy"],
+    "maketestsets": ["sets"],
+    "makeInclusionTestQueries": ["incl"],
+    "mapping2taxon": ["m2t.tsv"],
+    "accession2taxid": ["a2t.map"],
+}
+
+# cases that end with exit code 1
+FAILS = {"validatedb-reference-only", "validatedb-mismatch",
+         "validatedb-missing", "validate-input-bad", "databases-unknown"}
+
+
+def _tree(path):
+    if os.path.isfile(path):
+        with open(path, "rb") as f:
+            return {"": f.read()}
+    out = {}
+    for d, _, names in os.walk(path):
+        for n in names:
+            with open(os.path.join(d, n), "rb") as f:
+                out[os.path.relpath(os.path.join(d, n), path)] = f.read()
+    assert out, path
+    return out
 
 
 @pytest.mark.parametrize("case,argv", SUBCOMMANDS,
@@ -100,15 +246,21 @@ def test_subcommand_output_equals_jax(dbs, capsys, case, argv):
     for jt, cli in (("j", jcli), ("t", tcli)):
         fill = {**dirs, "root": root, "jt": jt,
                 "jtref": dirs[f"{jt}ref"]}
-        rc, out, _ = _run(cli, [a.format(**fill) for a in argv], capsys)
+        # --device is the port's own flag (the JAX CLI has none)
+        args = [a.format(**fill) for a in argv
+                if not (jt == "j" and a == "--device=cpu")]
+        rc, out, _ = _run(cli, args, capsys)
+        out = re.sub(r"\(\d+\.\d+s\)", "(s)", out)       # build seconds
+        out = re.sub(r"in \d+\.\d+s \(\d+ reads/s\)", "in (s)", out)
         got[jt] = (rc, out.replace(f"{root}/{jt}", "{root}/")
-                   .replace(f"{jt}ref", "ref"))
+                   .replace(f"{jt}ref", "ref")
+                   .replace("metabuli-tpu", "metabuli-torch"))
     assert got["t"] == got["j"]
     rc, out = got["t"]
     assert out
-    assert rc == (1 if case in ("validatedb-reference-only",
-                                "validatedb-mismatch", "validatedb-missing",
-                                "validate-input-bad") else 0)
+    assert rc == (1 if case in FAILS else 0)
+    for w in WRITES.get(case, ()):
+        assert _tree(f"{root}/t{w}") == _tree(f"{root}/j{w}"), w
     if case == "expand_diffidx":
         with open(f"{root}/j.expanded", "rb") as a, \
                 open(f"{root}/t.expanded", "rb") as b:
@@ -207,3 +359,105 @@ def test_classify_refusals_equal_jax(dbs, capsys):
         assert got["t"] == got["j"]
         assert got["t"][0] == 1 and (got["t"][1] or got["t"][2])
     assert not os.path.exists(os.path.join(root, "refused"))
+
+
+@pytest.fixture
+def http_archive(tmp_path):
+    """A local HTTP server (localhost, Range support) serving a small
+    reference-format archive under the download host's archive name."""
+    import http.server
+
+    serve = tmp_path / "serve"
+    serve.mkdir()
+    payload = {"diffIdx": np.random.default_rng(0).integers(
+        0, 255, size=200_000, dtype=np.uint8).tobytes(),
+        "db.parameters": b"Syncmer\t0\n"}
+    buf = io.BytesIO()
+    with tarfile.open(fileobj=buf, mode="w:gz") as tf:
+        for name, data in payload.items():
+            info = tarfile.TarInfo(name)
+            info.size = len(data)
+            tf.addfile(info, io.BytesIO(data))
+    (serve / "refseq_virus.tar.gz").write_bytes(buf.getvalue())
+    starts = []         # the first byte each GET was answered from
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        """GET of a served file; "Range: bytes=N-" answers 206 with the
+        tail from N."""
+
+        def do_GET(self):
+            path = serve / self.path.lstrip("/")
+            if not path.is_file():
+                self.send_error(404)
+                return
+            data = path.read_bytes()
+            start = 0
+            rng = self.headers.get("Range", "")
+            if rng.startswith("bytes="):
+                start = int(rng[6:].split("-")[0])
+            starts.append(start)
+            self.send_response(206 if start else 200)
+            self.send_header("Content-Length", str(len(data) - start))
+            self.end_headers()
+            self.wfile.write(data[start:])
+
+        def log_message(self, *a):
+            pass
+
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    yield (f"http://127.0.0.1:{srv.server_address[1]}", buf.getvalue(),
+           payload, starts)
+    srv.shutdown()
+    t.join(timeout=10)
+    assert not t.is_alive()
+
+
+def test_databases_download_equals_jax(tmp_path, http_archive, monkeypatch,
+                                       capsys):
+    """`databases RefSeq_virus OUT --tmp TMP` against the local server
+    (the download host's URL rewritten to it in both CLIs): the archive
+    is fetched, unpacked into OUT and reported as JAX reports it; a part
+    file left by an interrupted download is resumed from its offset; an
+    unreachable host ends with exit 1 and the instructions."""
+    base, blob, payload, starts = http_archive
+    host = "https://metabuli.steineggerlab.workers.dev"
+    got = {}
+    for jt, cli in (("j", jcli), ("t", tcli)):
+        real = cli._download_resumable
+        monkeypatch.setattr(cli, "_download_resumable",
+                            lambda url, dest, timeout=30, real=real:
+                            real(url.replace(host, base), dest, timeout))
+        out, tmp = tmp_path / f"{jt}out", tmp_path / f"{jt}tmp"
+        rc, text, _ = _run(cli, ["databases", "RefSeq_virus", str(out),
+                                 "--tmp", str(tmp)], capsys)
+        got[jt] = (rc, text.replace(str(tmp_path / jt), "X")
+                   .replace("metabuli-tpu", "metabuli-torch"))
+        for name, data in payload.items():
+            assert (out / name).read_bytes() == data
+        assert not (tmp / "refseq_virus.tar.gz.part").exists()
+    assert got["t"] == got["j"]
+    assert got["t"][0] == 0 and "Extracting into" in got["t"][1]
+    # resume: half the archive already in the part file
+    dest = tmp_path / "resumed.tar.gz"
+    (tmp_path / "resumed.tar.gz.part").write_bytes(blob[:len(blob) // 2])
+    capsys.readouterr()
+    monkeypatch.undo()
+    tcli._download_resumable(f"{base}/refseq_virus.tar.gz", str(dest))
+    assert f"resuming at {len(blob) // 2 / 1e6:.1f} MB" in \
+        capsys.readouterr().out
+    assert dest.read_bytes() == blob
+    assert starts == [0, 0, len(blob) // 2]
+
+    def unreachable(url, dest, timeout=30):
+        raise OSError("no route to host")
+
+    for jt, cli in (("j", jcli), ("t", tcli)):
+        monkeypatch.setattr(cli, "_download_resumable", unreachable)
+        rc, text, _ = _run(cli, ["databases", "GTDB",
+                                 str(tmp_path / f"{jt}gtdb")], capsys)
+        got[jt] = (rc, text.replace(f"{jt}gtdb", "gtdb")
+                   .replace("metabuli-tpu", "metabuli-torch"))
+    assert got["t"] == got["j"]
+    assert got["t"][0] == 1 and "Download failed" in got["t"][1]

@@ -27,6 +27,17 @@ def test_sources_cover_the_parallel_package():
         assert os.path.join("metabuli_work_tpu_torch", "parallel", f) in rel
 
 
+def test_sources_cover_the_host_tools():
+    """The build options, upkeep, filter, taxonomy and report modules."""
+    rel = {os.path.relpath(p, PKG) for p in _sources()}
+    for f in ("index/minhash.py", "index/orf.py", "index/prodigal.py",
+              "index/builder.py", "index/update.py", "index/packing.py",
+              "classify/filter.py", "taxonomy/gtdb.py", "taxonomy/tools.py",
+              "report/grade.py", "report/extract.py", "report/refiner.py",
+              "report/benchmark.py", "report/virus_benchmark.py", "cli.py"):
+        assert f in rel, f
+
+
 def _imported_modules(path):
     tree = ast.parse(open(path).read(), path)
     for node in ast.walk(tree):
@@ -65,3 +76,11 @@ def test_entry_points_need_a_card_unless_cpu_requested(tmp_path):
     db = build_db(build_database, str(tmp_path), "db", syncmer=False)
     with pytest.raises(RuntimeError, match="CUDA"):
         Classifier(db, ClassifyParams(seq_mode=1))
+    from metabuli_work_tpu_torch.classify.filter import filter_reads
+
+    reads = tmp_path / "reads.fna"
+    reads.write_text(">r0\n" + "ACGT" * 40 + "\n")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        filter_reads(str(reads), [db], str(tmp_path / "out"), "job",
+                     ClassifyParams(seq_mode=1))
+    assert not (tmp_path / "out").exists()

@@ -2,6 +2,7 @@
 torch package against the JAX package (tests/test_torch_*.py)."""
 
 import os
+import shutil
 
 import numpy as np
 
@@ -164,3 +165,131 @@ def write_taxonomy_blob(path, tax):
                   offsets.astype("<u4")):
             f.write(a.tobytes())
         f.write(chars)
+
+
+_STOPS = (b"TAA", b"TAG", b"TGA")
+_SENSE = np.array([[a, b, c] for a in b"ACGT" for b in b"ACGT"
+                   for c in b"ACGT" if bytes((a, b, c)) not in _STOPS],
+                  dtype=np.uint8)
+
+
+def gene_genome(rng, length, gene_codons=(100, 500), spacer=(50, 300)):
+    """A bacterium-like sequence of `length` bases: genes (ATG, stop-free
+    random codons, a stop) on either strand between random intergenic
+    spacers.  Returns it as a str."""
+    parts, n = [], 0
+    while n < length:
+        sp = int(rng.integers(spacer[0], spacer[1] + 1))
+        parts.append(ACGT[rng.integers(0, 4, size=sp)])
+        body = _SENSE[rng.integers(0, len(_SENSE),
+                                   size=int(rng.integers(*gene_codons)))]
+        gene = np.concatenate([np.frombuffer(b"ATG", np.uint8),
+                               body.reshape(-1),
+                               np.frombuffer(_STOPS[rng.integers(0, 3)],
+                                             np.uint8)])
+        if rng.random() < 0.5:
+            gene = _COMP[gene[::-1]]
+        parts.append(gene)
+        n += sp + len(gene)
+    return np.concatenate(parts)[:length].tobytes().decode()
+
+
+def write_tool_inputs(d, genomes):
+    """Inputs of the taxonomy, report and grading tools, written under
+    d["root"] beside write_inputs' files and the DB d["db"] (their paths
+    go into d): reads of the genomes plus random reads as FASTA and
+    FASTQ; their classification TSV (the torch package's classify on the
+    CPU) with a few hand-made rows after it ("cls"; "cls_clean" without
+    them); an answer sheet, strata and read groups; a read->taxid
+    mapping; GTDB and ICTV taxonomy tables; names.dmp with pipes and a
+    replacement table; a FASTA list with accessions missing from the
+    taxonomy; an assembly list."""
+    from metabuli_work_tpu_torch.classify.pipeline import (Classifier,
+                                                           ClassifyParams)
+    from metabuli_work_tpu_torch.report.reporter import write_classifications
+
+    root = d["root"]
+    reads, src = simulate_reads(genomes, 28, seed=42)
+    rng = np.random.default_rng(43)
+    reads = np.concatenate([reads, ACGT[rng.integers(0, 4, size=(4, 150))]])
+    d["reads_fa"] = os.path.join(root, "reads.fna")
+    write_reads(d["reads_fa"], reads)
+    d["reads_fq"] = os.path.join(root, "reads.fq")
+    with open(d["reads_fq"], "w") as f:
+        for i, r in enumerate(reads):
+            f.write(f"@r{i} c{i % 3}\n{r.tobytes().decode()}\n+\n"
+                    f"{'I' * len(r)}\n")
+    clf = Classifier(d["db"], ClassifyParams(seq_mode=1, min_score=0.15,
+                                             min_sp_score=0.5,
+                                             batch_size=16), device="cpu")
+    d["cls"] = os.path.join(root, "job_classifications.tsv")
+    write_classifications(d["cls"], clf.classify_file(d["reads_fa"]),
+                          clf.taxonomy)
+    d["cls_clean"] = shutil.copyfile(d["cls"],
+                                     os.path.join(root, "clean.tsv"))
+    with open(d["cls"], "a") as f:
+        f.write("1\tx_unknown\t777\t150\t0.9\tspecies\t777:3 \n"
+                "1\tx_bad\tnotanumber\t150\t0.9\tspecies\t\n"
+                "0\tx_short\t0\n")
+    d["answer"] = os.path.join(root, "answer.tsv")
+    with open(d["answer"], "w") as f:
+        f.write("#read\ttaxid\n")
+        for i, s in enumerate(src):
+            f.write(f"r{i}\t{10 + s}\n")
+        f.write("r28\t12\nx_unknown\t13\n0\t10\n1\t11\n2\t12\n3\t999\n")
+    d["strata"] = os.path.join(root, "strata.tsv")
+    with open(d["strata"], "w") as f:
+        for i in range(32):
+            f.write(f"r{i}\t{'low' if i % 3 else 'high'}\n")
+        for i in range(6):
+            f.write(f"{i}\t{'low' if i % 2 else 'high'}\n")
+    d["groups"] = os.path.join(root, "groups.tsv")
+    with open(d["groups"], "w") as f:
+        f.write("1\t0\t1\t2\n2\t3\t4\n3\t5\n4\t1\t\t2\n")
+    d["mapping"] = os.path.join(root, "mapping.tsv")
+    with open(d["mapping"], "w") as f:
+        f.write("#read\ttaxid\nr0\t10\nr1\t13\nr2\t2\nr3\t1\nr4\t4242\n")
+    d["gtdb1"] = os.path.join(root, "bac.tsv")
+    with open(d["gtdb1"], "w") as f:
+        f.write("GB_GCA_000001.1\td__Bacteria;p__P1;c__C1;o__O1;f__F1;"
+                "g__G1;s__G1 sp1\n"
+                "RS_GCF_000002.1\td__Bacteria;p__P1;c__C1;o__O1;f__F1;"
+                "g__G1;s__G1 sp2\n"
+                "# a comment\n\n"
+                "GB_GCA_000003.2\td__Bacteria;p__P2;c__;o__;f__;g__;s__\n")
+    d["gtdb2"] = os.path.join(root, "ar.tsv")
+    with open(d["gtdb2"], "w") as f:
+        f.write("GB_GCA_000004.1\td__Archaea;p__A1;c__AC;o__AO;f__AF;"
+                "g__AG;s__AG x\n")
+    d["names"] = os.path.join(root, "names.dmp")
+    with open(d["names"], "w") as f:
+        f.write("1\t|\troot\t|\t\t|\tscientific name\t|\n"
+                "2\t|\tG|1\t|\t\t|\tscientific name\t|\n"
+                "10\t|\tSp0\t|\t\t|\tscientific name\t|\n"
+                "11\t|\told name\t|\t\t|\tsynonym\t|\n")
+    d["repl"] = os.path.join(root, "repl.tsv")
+    with open(d["repl"], "w") as f:
+        f.write("Sp0\tSpecies zero\nold name\tnew|name\n")
+    d["fastas_new"] = os.path.join(root, "fastas_new.txt")
+    with open(os.path.join(root, "new.fna"), "w") as f:
+        f.write(">ACC1.1\nACGT\n>NEWACC.1 x\nACGT\n>ACC2\nACGT\n"
+                ">LOST.3\nACGT\n")
+    with open(d["fastas_new"], "w") as f:
+        f.write(os.path.join(root, "new.fna") + "\n")
+    d["acc2taxid_new"] = os.path.join(root, "new.map")
+    with open(d["acc2taxid_new"], "w") as f:
+        f.write("accession\taccession.version\ttaxid\tgi\n"
+                "ACC1\tACC1.1\t11\t0\nACC2\tACC2.1\t12\t0\n"
+                "LOST\tLOST.3\t4242\t0\n")
+    d["assemblies"] = os.path.join(root, "assemblies.tsv")
+    with open(d["assemblies"], "w") as f:
+        for i, t in enumerate([10, 11, 12, 13, 10, 12, 4242, 2]):
+            f.write(f"asm{i}.fna\t{t}\n")
+    d["ictv"] = os.path.join(root, "ictv.tsv")
+    with open(d["ictv"], "w") as f:
+        f.write("Sort\tRealm\tKingdom\tOrder\tFamily\tGenus\tSpecies\n"
+                "1\tRiboviria\tOrthornavirae\tO1\tF1\tGa\tGa one\n"
+                "2\tRiboviria\tOrthornavirae\tO1\tF1\tGa\tGa two\n"
+                "3\tRiboviria\tOrthornavirae\tO1\tF2\tGb\tGb one\n"
+                "4\tRiboviria\t\tO2\tF3\tGc\tGc one\n"
+                "5\tRiboviria\tOrthornavirae\tO1\tF1\tGd\tGd one\n")
