@@ -1,6 +1,6 @@
 """Smoke run of metabuli_work_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--seed N]
 
 1. prints the card (nvidia-smi name and power limit) and the torch/CUDA
    versions;
@@ -121,6 +121,32 @@
      and genus), taxdump of the updated DB, count-common-kmers of the
      accession-level DB against the updated DB (shared = the
      accession-level DB's distinct values: both extract alike);
+   after those, so that every earlier path and phase runs as before them:
+   - narrow probes: the first 4,096 single-end reads through the wide
+     layout and under each probe knob as the classifier reads it when
+     made (METABULI_WIDE_PROBE=0: 64-byte block rows, run starts
+     block-aligned; with METABULI_QUAD_ALIGN_GB=0 unaligned;
+     METABULI_HASH_PROBE=0: the bucket bisection; METABULI_HASH_CHAIN=3),
+     then METABULI_WIDE_PROBE=0 streamed (hbm_budget_gb 0.25: entry-row
+     ranges) and on the 2 x 2 mesh (entry-row shards); every read equal
+     to the wide resident run's (tax_cnt and top_species included); each
+     prints the layout's device bytes against the wide layout's, the
+     aligned padding factor, launches, stage table and reads/s, and the
+     five resident layouts then run 5 times each in turns (reads/s of
+     every run);
+   - aa-only extraction: extract_batch(aa_only=True, k=12) on the card
+     over the single-end reads, plain and syncmer, equal to the CPU run
+     of the same function and, for 256 reads, to the host scanner's
+     per-read (k-mer, position) multisets;
+   - read groups: build_common_kmer_db over the 8 genomes (six frames,
+     the >= 2-species filter), run_grouping of the single-end reads and
+     of the pairs (native union-find), apply_groups on the single-end
+     run's classifications; fails if a group holds reads of both genera;
+   - uniref: a synthetic UniRef XML and protein set from --seed (default
+     0; 20 UniRef50 x 10 UniRef90 x 10 UniRef100 clusters), then
+     create-uniref-tree, create-uniref-db, create-unique-kmer-list,
+     assign_uniref and uniref2taxonomy as CLI subprocesses; fails unless
+     every exact-copy query lands on its own cluster or an ancestor;
    For every path it checks that the plain DP never ran on the card,
    that every launch at cap <= 32 went to the warp variant, that >= 95%
    of reads land on their source species or genus, and that a subset
@@ -164,6 +190,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -1475,6 +1502,342 @@ def cli_tools_phase(fa, src, ref_dir, upd, acc, removed, card):
           f"{card}")
 
 
+# ------------- narrow and bisection probes, AA-only extraction, read
+# groups, UniRef
+N_NARROW = 4096                  # reads of a narrow-probe phase
+NARROW_TURNS = 5                 # timed runs of each layout, in turns
+NARROW = (
+    ("wide (4,096 reads)", {}),
+    ("narrow aligned", {"METABULI_WIDE_PROBE": "0"}),
+    ("narrow unaligned", {"METABULI_WIDE_PROBE": "0",
+                          "METABULI_QUAD_ALIGN_GB": "0"}),
+    ("bisection", {"METABULI_HASH_PROBE": "0"}),
+    ("hash chain 3", {"METABULI_HASH_CHAIN": "3"}),
+)                                # (the classifier reads them when made)
+UNIREF = (20, 10, 10)            # UniRef50 x UniRef90 x UniRef100 clusters
+UNIREF_LEN = (200, 400)          # protein lengths
+AA_LETTERS = np.array(list("ARNDCQEGHILKMFPSTWYV"))
+
+
+def layout_bytes(clf):
+    """Device bytes of a resident classifier's index layout: (rows, the
+    hash table or, for the bisection, its bucket tables)."""
+    size = lambda t: t.numel() * t.element_size() if t is not None else 0
+    kw = clf._probe_kw
+    return (size(clf.db_quad), size(clf.hash_table)
+            + size(kw.get("bucket_lo")) + size(kw.get("db_aa_lo")))
+
+
+def narrow_phases(dp_cuda, classifier, fa, index, ref, src, runs, mesh,
+                  card):
+    """The first N_NARROW single-end reads through each probe layout
+    (NARROW: the probe knobs as the environment gives them when the
+    classifier is made), then the narrow layout streamed (hbm_budget_gb
+    STREAM_GB: entry-row ranges) and on the 2 x 2 mesh (entry-row
+    shards): every read equal to the wide resident run's (tax_cnt and
+    top_species included); the layout's device bytes against the wide
+    one's, the aligned padding factor, launches, stage table and
+    reads/s; then the resident layouts' reads/s in turns."""
+    wide, kept = None, {}
+    for name, env in NARROW:
+        t0 = time.perf_counter()
+        with mock.patch.dict(os.environ, env):
+            clf = classifier(seq_mode=1, batch_size=BATCH, **SHORT)
+        setup = time.perf_counter() - t0
+        clf.classify_file(fa("warm.fna"))
+        r = runs[name] = drive(dp_cuda, clf,
+                               lambda: clf.classify_file(fa("narrow.fna")))
+        assert r["launches"] > 0, f"{name}: the path DP never launched"
+        check_path(name, r, N_NARROW, src[:N_NARROW], dp_cuda, card)
+        same_as(name, "the wide resident run (tax_cnt and top_species "
+                "included)", full_tuples(r["results"]), full_tuples(ref))
+        rows, tables = layout_bytes(clf)
+        wide = wide or (rows, tables, r["dt"])
+        kind = ("wide 512-byte rows" if clf._wide else
+                "64-byte block rows, run starts "
+                + ("block-aligned" if clf._aligned else "unaligned"))
+        probe = (f"AA hash of {clf.hash_table.shape[0]} rows x "
+                 f"{clf.hash_table.shape[1] * 4} B, chain "
+                 f"{clf.hash_chain}" if clf.hash_table is not None else
+                 f"bucket bisection, {clf._probe_kw['bucket_steps']} steps")
+        print(f"{name}: {kind}, {probe}; {clf.db_m} entries for "
+              f"{index.size} metamers (padding factor "
+              f"{clf.db_m / index.size:.4f}); device bytes: rows "
+              f"{rows / 1e6:.1f} MB ({rows / wide[0]:.3f}x the wide rows' "
+              f"{wide[0] / 1e6:.1f} MB), tables {tables / 1e6:.1f} MB (wide "
+              f"{wide[1] / 1e6:.1f} MB), in all {(rows + tables) / 1e6:.1f} "
+              f"MB against {(wide[0] + wide[1]) / 1e6:.1f} MB; setup "
+              f"{setup:.1f} s; {N_NARROW / r['dt']:.1f} reads/s against the "
+              f"wide run's {N_NARROW / wide[2]:.1f}; on {card}")
+        stage_table(name, clf, card)
+        kept[name] = clf
+        clf = None
+    # the layouts' rates in turns, all classifiers resident (one run of
+    # a layout is a few batches: host noise between phases swamps it)
+    rates = {name: [] for name in kept}
+    for _ in range(NARROW_TURNS):
+        for name, clf in kept.items():
+            t0 = time.perf_counter()
+            clf.classify_file(fa("narrow.fna"))
+            torch.cuda.synchronize()
+            rates[name].append(N_NARROW / (time.perf_counter() - t0))
+    for name, rs in rates.items():
+        print(f"{name}: {', '.join(f'{x:.1f}' for x in rs)} reads/s in "
+              f"{NARROW_TURNS} turns with the other layouts (median "
+              f"{float(np.median(rs)):.1f}); on {card}")
+    kept = clf = None
+    torch.cuda.empty_cache()
+
+    env = dict(NARROW[1][1])
+    for name, kw in (("narrow streamed", {"hbm_budget_gb": STREAM_GB}),
+                     ("narrow mesh", {"mesh": mesh})):
+        t0 = time.perf_counter()
+        with mock.patch.dict(os.environ, env):
+            clf = classifier(seq_mode=1, batch_size=BATCH, **SHORT, **kw)
+        setup = time.perf_counter() - t0
+        if "mesh" in kw:
+            shard, ht = clf._cells[0][0]
+            assert clf.mesh is mesh and not clf._mesh_stream
+            assert shard.shape[1] == 4, "narrow mesh: not entry-row shards"
+            shape = (f"{len(clf._cells[0])} shards of {shard.shape[0]} entry "
+                     f"rows of 16 B, hash rows of {ht.shape[1] * 4} B")
+        else:
+            rs = clf._ranges
+            assert clf._streaming and clf._n_ranges >= 4
+            assert rs.quads.shape[2] == 4, "narrow streamed: not entry rows"
+            shape = (f"{clf._n_ranges} ranges of {rs.quads.shape[1]} entry "
+                     f"rows of 16 B ({rs.range_bytes / 1e6:.1f} MB with the "
+                     f"hash)")
+            up0 = rs.stats()
+        clf.classify_file(fa("warm.fna"))
+        r = runs[name] = drive(dp_cuda, clf,
+                               lambda: clf.classify_file(fa("narrow.fna")))
+        assert r["launches"] > 0, f"{name}: the path DP never launched"
+        check_path(name, r, N_NARROW, src[:N_NARROW], dp_cuda, card)
+        same_as(name, "the wide resident run (tax_cnt and top_species "
+                "included)", full_tuples(r["results"]), full_tuples(ref))
+        extra = ""
+        if "mesh" in kw:
+            assert r["launches"] == 2 * r["dispatches"]
+        else:
+            up1 = clf._ranges.stats()
+            extra = (f"; {up1['sweeps'] - up0['sweeps']} sweeps, "
+                     f"{(up1['bytes'] - up0['bytes']) / 1e6:.1f} MB uploaded")
+        print(f"{name}: {shape}, hash chain {clf.hash_chain}; setup "
+              f"{setup:.1f} s; {N_NARROW / r['dt']:.1f} reads/s against the "
+              f"wide resident run's {N_NARROW / wide[2]:.1f}{extra}; on "
+              f"{card}")
+        stage_table(name, clf, card)
+        clf = None
+        torch.cuda.empty_cache()
+
+
+def aa_extract_phase(reads, card):
+    """extract_batch(aa_only=True, k=12) on the card over the single-end
+    reads, with and without syncmer: exactly the port's CPU run of the
+    same function, and for N_CPU_CHECK reads the per-read (k-mer,
+    position) multiset of the host scanner
+    encode_np.extract_query_kmers(aa_only=True)."""
+    from metabuli_work_tpu_torch.ops import encode_np, encode_torch
+
+    lens = np.full(len(reads), reads.shape[1], np.int32)
+    host = (torch.from_numpy(reads), torch.from_numpy(lens))
+    dev = tuple(t.cuda() for t in host)
+    for syncmer in (False, True):
+        kw = dict(syncmer=syncmer, k=12, aa_only=True)
+        out = encode_torch.extract_batch(*dev, **kw)
+        ms = time_cuda(lambda: encode_torch.extract_batch(*dev, **kw), 5)
+        t0 = time.perf_counter()
+        cpu = encode_torch.extract_batch(*host, **kw)
+        cpu_s = time.perf_counter() - t0
+        for a, b in zip(out, cpu):
+            assert torch.equal(a.cpu(), b), "AA-only extraction: card != CPU"
+        k, p, v = (t[:N_CPU_CHECK].cpu().numpy() for t in out)
+        for b in range(N_CPU_CHECK):
+            km, pos, _ = encode_np.extract_query_kmers(
+                reads[b].tobytes().decode(), **kw)
+            assert sorted(zip(k[b][v[b]].tolist(), p[b][v[b]].tolist())) \
+                == sorted(zip(km.astype(np.int64).tolist(),
+                              pos.astype(np.int64).tolist())), \
+                f"AA-only extraction: read {b} differs from the host scanner"
+        n = int(out[2].sum())
+        print(f"aa-only extraction ({'syncmer' if syncmer else 'plain'}): "
+              f"{len(reads)} reads -> {n} valid 12-mers, equal to the CPU "
+              f"run ({cpu_s:.2f} s there) and, for {N_CPU_CHECK} reads, to "
+              f"the host scanner; {ms:.3f} ms a call on {card}")
+
+
+def readgroup_phase(fa, genomes, src, src2, se_results, card):
+    """build_common_kmer_db over the smoke genomes (six frames, the
+    >= 2-species filter applied); run_grouping of the single-end reads
+    and of the pairs (native union-find); apply_groups on the single-end
+    run's classifications.  Fails if a group holds reads of both genera
+    (random sequence apart: no k-mer should join them)."""
+    from metabuli_work_tpu_torch.index.common import build_common_kmer_db
+    from metabuli_work_tpu_torch.readgroup.apply import apply_groups
+    from metabuli_work_tpu_torch.readgroup.grouping import (GroupingParams,
+                                                            run_grouping)
+    from metabuli_work_tpu_torch.taxonomy import Taxonomy
+
+    tax = smoke_taxonomy(Taxonomy)
+    seqs = [(f"G{i}", np.frombuffer(g.encode(), np.uint8))
+            for i, g in enumerate(genomes)]
+    lst, amap, taxdump = write_build_inputs(
+        fa, "rg", seqs, [1000 + i for i in range(len(genomes))], tax)
+    t0 = time.perf_counter()
+    common = build_common_kmer_db(fa("common"), lst, amap, taxdump,
+                                  orf_prediction=False,
+                                  common_filter="always")
+    print(f"read groups: common-k-mer DB of {len(common)} AA 12-mers shared "
+          f"by >= 2 species over {len(genomes)} genomes in "
+          f"{time.perf_counter() - t0:.1f} s")
+    groups_of = {}
+    for name, files, s_, mode in (
+            ("single-end", (fa("reads.fna"), None), src, 1),
+            ("paired", (fa("pairs_1.fna"), fa("pairs_2.fna")), src2, 2)):
+        out = fa(f"groups_{mode}")
+        t0 = time.perf_counter()
+        qg = run_grouping(files[0], fa("common"), out,
+                          GroupingParams(seq_mode=mode), files[1])[1:]
+        dt = time.perf_counter() - t0
+        grouped = qg > 0
+        gids = np.unique(qg[grouped])
+        both = [g for g in gids if len(set((s_[qg == g] % 2).tolist())) > 1]
+        own = 0
+        for g in gids:
+            members = s_[qg == g]
+            own += int((members == np.bincount(members).argmax()).sum())
+        print(f"read groups, {name}: {dt:.1f} s, {len(gids)} groups, "
+              f"{int(grouped.sum())} of {len(qg)} reads grouped, "
+              f"{100 * own / max(int(grouped.sum()), 1):.2f}% of grouped "
+              f"reads in a group whose majority species is their own; "
+              f"{len(both)} groups hold reads of both genera")
+        assert len(gids) > 0, f"read groups, {name}: no group"
+        assert not both, f"read groups, {name}: groups across genera"
+        groups_of[mode] = (out, qg)
+    with open(fa("se_cls.tsv"), "w") as f:
+        for q in se_results:
+            c = int(q.result.classification)
+            f.write(f"{int(q.result.is_classified)}\t{q.name}\t"
+                    f"{tax.orig_of(c) if c else 0}\t{READ_LEN}\t"
+                    f"{float(q.result.score):.4f}\t"
+                    f"{tax.rank_of(c) if c else '-'}\t-\n")
+    out, qg = groups_of[1]
+    t0 = time.perf_counter()
+    path = apply_groups(os.path.join(out, "groups"),
+                        os.path.join(out, "groupMap"), taxdump,
+                        fa("se_cls.tsv"), fa("applied"))
+    dt = time.perf_counter() - t0
+    before = np.array([tax.orig_of(int(q.result.classification))
+                       if q.result.classification else 0
+                       for q in se_results])
+    with open(path) as f:
+        after = np.array([int(ln.split("\t")[2]) for ln in f
+                          if not ln.startswith("#")])
+    right = lambda t: np.mean((t == 1000 + src) | (t == 101 + src % 2))
+    print(f"read groups, apply-group: {dt:.1f} s, {int((after != before).sum())}"
+          f" labels changed; at source species or genus "
+          f"{100 * right(before):.2f}% before, {100 * right(after):.2f}% "
+          f"after; on {card}")
+
+
+def uniref_inputs(rng, fa):
+    """A UniRef XML and protein set from rng: UNIREF[0] UniRef50 clusters
+    of UNIREF[1] UniRef90 clusters of UNIREF[2] UniRef100 clusters; a
+    UniRef90 ancestor is a 20%-mutant of its UniRef50 ancestor, a
+    UniRef100 protein a 5%-mutant of its UniRef90 ancestor.  Queries: an
+    exact copy of every other protein and a 3%-mutant of the rest.
+    Returns ({query name: its UniRef100 cluster}, {name: exact copy})."""
+    def mutate(p, rate):
+        p = p.copy()
+        m = rng.random(len(p)) < rate
+        p[m] = rng.choice(AA_LETTERS, size=int(m.sum()))
+        return p
+
+    prots, rows = {}, []
+    for a in range(UNIREF[0]):
+        anc50 = rng.choice(AA_LETTERS, size=int(rng.integers(*UNIREF_LEN)))
+        for b in range(UNIREF[1]):
+            anc90 = mutate(anc50, 0.2)
+            for c in range(UNIREF[2]):
+                u100 = f"UniRef100_S{a}_{b}_{c}"
+                prots[u100] = mutate(anc90, 0.05)
+                rows.append((u100, f"UniRef90_S{a}_{b}", f"UniRef50_S{a}"))
+    with open(fa("uniref.xml"), "w") as f:
+        f.write('<?xml version="1.0"?>\n'
+                '<UniRef100 xmlns="http://uniprot.org/uniref">\n')
+        f.writelines(f'<entry id="{u}">\n<property type="UniRef90 ID" '
+                     f'value="{u9}"/>\n<property type="UniRef50 ID" '
+                     f'value="{u5}"/>\n</entry>\n' for u, u9, u5 in rows)
+        f.write("</UniRef100>\n")
+    with open(fa("proteins.faa"), "w") as f:
+        f.writelines(f">{n}\n{''.join(p)}\n" for n, p in prots.items())
+    truth, exact = {}, {}
+    with open(fa("queries.faa"), "w") as f:
+        for i, (n, p) in enumerate(prots.items()):
+            q = p if i % 2 == 0 else mutate(p, 0.03)
+            name = f"q{i}"
+            truth[name], exact[name] = n, i % 2 == 0
+            f.write(f">{name}\n{''.join(q)}\n")
+    with open(fa("cluster2taxid.tsv"), "w") as f:
+        for k, (u, u9, u5) in enumerate(rows):
+            f.write(f"{u}\t{100000 + k}\n")
+            if k % UNIREF[2] == 0:
+                f.write(f"{u9}\t{50000 + k // UNIREF[2]}\n")
+    return truth, exact
+
+
+def uniref_phase(fa, seed, card):
+    """The UniRef chain as CLI subprocesses on a set made from `seed`:
+    create-uniref-tree, create-uniref-db, create-unique-kmer-list,
+    assign_uniref, uniref2taxonomy (seconds with process start).  Fails
+    unless every query that is an exact copy of a DB protein is assigned
+    to its own cluster or an ancestor of it; prints that share for the
+    mutated queries."""
+    from metabuli_work_tpu_torch.uniref.tree import UnirefTree
+
+    truth, exact = uniref_inputs(np.random.default_rng(seed), fa)
+    root = os.path.dirname(os.path.abspath(__file__))
+    cli = [sys.executable, "-m", "metabuli_work_tpu_torch.cli"]
+    for argv in (["create-uniref-tree", fa("uniref.xml"), fa("tree.npz")],
+                 ["create-uniref-db", fa("uniref_db"), fa("proteins.faa"),
+                  fa("tree.npz")],
+                 ["create-unique-kmer-list", fa("unique_db"),
+                  fa("proteins.faa")],
+                 ["assign_uniref", fa("queries.faa"), fa("uniref_db"),
+                  fa("uniref_out")],
+                 ["uniref2taxonomy",
+                  os.path.join(fa("uniref_out"), "uniref_classifications.tsv"),
+                  fa("cluster2taxid.tsv"), fa("uniref_tax.tsv")]):
+        t0 = time.perf_counter()
+        p = subprocess.run(cli + argv, capture_output=True, text=True,
+                           cwd=root, timeout=900)
+        dt = time.perf_counter() - t0
+        print(f"uniref: {argv[0]} -> exit {p.returncode} in {dt:.1f} s: "
+              f"{p.stdout.strip().splitlines()[-1] if p.stdout.strip() else ''}")
+        assert p.returncode == 0, f"uniref {argv[0]}:\n{p.stdout[-3000:]}" \
+                                  f"{p.stderr[-3000:]}"
+    tree = UnirefTree.load(fa("tree.npz"))
+    hit = {True: [], False: []}
+    with open(os.path.join(fa("uniref_out"),
+                           "uniref_classifications.tsv")) as f:
+        next(f)
+        for ln in f:
+            _, name, uid = ln.split("\t")[:3]
+            hit[exact[name]].append(int(uid) > 0 and tree.is_ancestor(
+                int(uid), tree.name2id[truth[name]]))
+    with open(fa("uniref_tax.tsv")) as f:
+        n_tax = sum(1 for _ in f) - 1
+    assert n_tax == len(truth), (n_tax, len(truth))
+    share = lambda h: 100 * sum(h) / len(h)
+    print(f"uniref: {len(tree)} tree nodes, {len(truth)} queries; exact "
+          f"copies at their own cluster or an ancestor "
+          f"{share(hit[True]):.2f}%, 3%-mutants {share(hit[False]):.2f}%; "
+          f"uniref2taxonomy wrote {n_tax} rows")
+    assert all(hit[True]), "uniref: an exact copy left its own lineage"
+
+
+
 def dist_worker(argv):
     """One process of the distributed path: rank, port, reads, warm-up
     reads, output JSON (see the module docstring)."""
@@ -1531,6 +1894,7 @@ def dist_worker(argv):
 
 def main(argv=()):
     profiled = "--profile" in argv
+    seed = int(argv[argv.index("--seed") + 1]) if "--seed" in argv else 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
@@ -2075,6 +2439,27 @@ def main(argv=()):
             f"{n} {b - a:.1f}" for n, a, b in zip(
                 ("orf build", "updateDB", "accession-level", "filter",
                  "cli tools"), took, took[1:])))
+        torch.cuda.empty_cache()
+
+        # ---- the narrow and bisection probes, AA-only extraction, read
+        # groups, UniRef (after every earlier path and phase)
+        took = [time.perf_counter()]
+        write_fasta(fa("narrow.fna"), reads[:N_NARROW])
+        narrow_phases(dp_cuda, classifier, fa, index,
+                      runs["single-end"]["results"][:N_NARROW], src, runs,
+                      mesh, card)
+        took.append(time.perf_counter())
+        aa_extract_phase(reads, card)
+        took.append(time.perf_counter())
+        readgroup_phase(fa, genomes, src, src2,
+                        runs["single-end"]["results"], card)
+        took.append(time.perf_counter())
+        uniref_phase(fa, seed, card)
+        took.append(time.perf_counter())
+        print("phase seconds: " + ", ".join(
+            f"{n} {b - a:.1f}" for n, a, b in zip(
+                ("narrow probes", "aa-only extraction", "read groups",
+                 "uniref"), took, took[1:])))
         torch.cuda.empty_cache()
 
     # ------------------------------- main-path parity and kernel timings

@@ -54,6 +54,16 @@ Under --em every read keeps its top species scores (ReadResult.
 species_scores) for classify/em.run_em, so the device-assign flow, which
 carries none, stays off.
 
+The probe's index layout is chosen when the classifier is made, from
+the JAX package's knobs: 512-byte rows with the AA hash by default;
+METABULI_WIDE_PROBE=0 takes 64-byte block rows (run starts block-aligned
+while the padded index stays under METABULI_QUAD_ALIGN_GB, default 6)
+resident and entry-row shards streamed or on a mesh;
+METABULI_HASH_PROBE=0 replaces the resident hash by the bucket
+bisection; METABULI_HASH_CHAIN / METABULI_HASH_GB bound the hash's
+chain and table size.  METABULI_DEBUG_RETRY prints each overflow retry
+of the host-scoring ladder to stderr.
+
 classify_file reads with the native C++ batch reader
 (io/native_reader.py) when its library builds, else with the Python
 reader (io/fasta.py); Classifier.reader names the one that ran.
@@ -61,6 +71,7 @@ reader (io/fasta.py); Classifier.reader names the one that ran.
 
 import math
 import os
+import sys
 from collections import deque
 from dataclasses import dataclass
 from typing import Iterator, List
@@ -70,7 +81,9 @@ import torch
 
 from ..device import resolve_device
 from ..index.format import KmerIndex, load_index
-from ..index.packing import (load_or_pack_wide, load_or_shard,
+from ..index.packing import (aligned_bytes, bucket_state_from_numpy,
+                             load_or_pack_narrow,
+                             load_or_pack_wide, load_or_shard,
                              match_state_from_numpy,
                              sharded_state_from_numpy, state_from_numpy,
                              stream_state_from_numpy)
@@ -285,6 +298,10 @@ class Classifier:
         self._grid = self.mesh or Mesh([[self.device]])
         self.params = params
         self.index = index
+        # the probe-layout knobs (module docstring)
+        self._wide_probe = os.environ.get("METABULI_WIDE_PROBE", "1") == "1"
+        self._align_cap = float(os.environ.get("METABULI_QUAD_ALIGN_GB",
+                                               "6")) * (1 << 30)
         # DB-range streaming: when the packed index (16 B per metamer)
         # takes more than half the device-memory budget, keep it on the
         # host and probe it in range passes
@@ -292,9 +309,16 @@ class Classifier:
             or float(os.environ.get("METABULI_HBM_GB", "0") or 0)
         self._hbm_budget_gb = budget_gb
         self._shard_bytes = len(index.values) * 16
+        quad_bytes = self._shard_bytes
+        if budget_gb > 0 and self.mesh is None and not self._wide_probe:
+            # a resident narrow index would be block-aligned: decide on
+            # that footprint, so an index just under the budget cannot
+            # outgrow it once padded
+            padded = aligned_bytes(index._aa_runs())
+            if padded <= self._align_cap:
+                quad_bytes = max(quad_bytes, padded)
         self._streaming = (self.mesh is None and budget_gb > 0
-                           and self._shard_bytes
-                           > budget_gb * (1 << 30) * 0.5)
+                           and quad_bytes > budget_gb * (1 << 30) * 0.5)
         self.taxonomy = index.taxonomy
         meta = index.meta
         self.kmer_format = int(meta.get("kmer_format", 2))
@@ -404,7 +428,8 @@ class Classifier:
             budget = self._hbm_budget_gb * (1 << 30) * 0.5
             n_ranges = max(2, int(np.ceil(self._shard_bytes / budget)))
             quads, hts, log2_rows, chain, _ = load_or_shard(
-                self.index.values, db_ef, sp_euk, n_ranges)
+                self.index.values, db_ef, sp_euk, n_ranges,
+                wide=self._wide_probe)
             st = stream_state_from_numpy(
                 quads, hts, log2_rows, chain, depth, lift,
                 self.taxonomy.euler.astype(np.int32), ef.astype(np.int32),
@@ -417,10 +442,25 @@ class Classifier:
             self._tables = {self.device: (self.euler, self.lca_depth,
                                           self.lca_lift)}
             return
-        # 512-byte rows + a one-row-chain hash up to a 3 GiB table
-        rows, ht, log2_rows, chain, db_m = load_or_pack_wide(
-            self.index.values, db_ef, sp_euk, max_chain=1,
-            max_bytes=3 << 30)
+        # the resident layout, chosen as the JAX package chooses it: the
+        # hash's chain bound defaults to 1 within a 3-GiB table, and the
+        # wide rows need the hash
+        use_hash = os.environ.get("METABULI_HASH_PROBE", "1") == "1"
+        mc_env = os.environ.get("METABULI_HASH_CHAIN")
+        hash_kw = dict(
+            max_chain=int(mc_env) if mc_env is not None else 1,
+            max_bytes=0 if mc_env else int(float(os.environ.get(
+                "METABULI_HASH_GB", "3")) * (1 << 30)))
+        self._wide = use_hash and self._wide_probe
+        self._aligned = (not self._wide and use_hash and aligned_bytes(
+            self.index._aa_runs()) <= self._align_cap)
+        if self._wide:
+            rows, ht, log2_rows, chain, db_m = load_or_pack_wide(
+                self.index.values, db_ef, sp_euk, **hash_kw)
+        else:
+            rows, ht, log2_rows, chain, db_m = load_or_pack_narrow(
+                self.index.values, db_ef, sp_euk, aligned=self._aligned,
+                use_hash=use_hash, **hash_kw)
         st = state_from_numpy(rows, ht, log2_rows, chain, db_m, depth, lift,
                               self.taxonomy.euler.astype(np.int32),
                               ef.astype(np.int32), self.device)
@@ -428,6 +468,17 @@ class Classifier:
             setattr(self, k, v)
         self._tables = {self.device: (self.euler, self.lca_depth,
                                       self.lca_lift)}
+        # what every resident dispatch hands the probe
+        self._probe_kw = dict(hash_table=self.hash_table,
+                              hash_log2_rows=self.hash_log2_rows,
+                              hash_chain=self.hash_chain, db_m=self.db_m,
+                              aligned=self._aligned)
+        if not use_hash:
+            # the bisection's bucket tables stay resident beside the rows
+            from ..ops.match_torch import build_buckets
+
+            self._probe_kw.update(bucket_state_from_numpy(
+                *build_buckets(self.index.values), self.device))
 
     def _init_mesh(self, db_ef, sp_euk, depth, lift, ef):
         """The index cut over the mesh's 'db' axis at AA-part boundaries,
@@ -446,7 +497,8 @@ class Classifier:
         n_ranges = max(2, int(np.ceil(self._shard_bytes / (budget * n_db)))) \
             if self._mesh_stream else 1
         quads, hts, log2_rows, chain, _ = load_or_shard(
-            self.index.values, db_ef, sp_euk, n_ranges * n_db)
+            self.index.values, db_ef, sp_euk, n_ranges * n_db,
+            wide=self._wide_probe)
         st = sharded_state_from_numpy(
             quads, hts, log2_rows, chain, depth, lift,
             self.taxonomy.euler.astype(np.int32), ef, self.mesh,
@@ -602,9 +654,7 @@ class Classifier:
                 cap=cap, kmer_format=self.kmer_format,
                 syncmer=self.syncmer, smer_len=self.smer_len,
                 path_width=path_width, win_frac=win_frac,
-                path_block=path_block, hash_table=self.hash_table,
-                hash_log2_rows=self.hash_log2_rows,
-                hash_chain=self.hash_chain, db_m=self.db_m)
+                path_block=path_block, **self._probe_kw)
             lmax2 = r2.shape[1] if r2 is not None else None
             part_w = part_widths(r1.shape[1], self.syncmer, self.kmer_format,
                                  self.smer_len, win_frac, lmax2=lmax2)
@@ -845,9 +895,7 @@ class Classifier:
                 cap=cap, kmer_format=self.kmer_format,
                 syncmer=self.syncmer, smer_len=self.smer_len,
                 path_width=path_width, win_frac=win_frac,
-                path_block=path_block, hash_table=self.hash_table,
-                hash_log2_rows=self.hash_log2_rows,
-                hash_chain=self.hash_chain, db_m=self.db_m)
+                path_block=path_block, **self._probe_kw)
             return {"full": True, "names": names, "l1": l1, "l2": l2_c,
                     "cap": cap, "a1": a1, "a2": a2, "path_width": path_width,
                     "path_block": path_block, "combine_k": combine_k,
@@ -979,6 +1027,11 @@ class Classifier:
                                        ctx["path_width"]) * 2
             else:
                 break
+            if os.environ.get("METABULI_DEBUG_RETRY"):
+                print(f"# retry st={st.tolist()} -> cap={eff_cap} "
+                      f"wf={eff_wf} pw={self._path_width} "
+                      f"pb={self._path_block} wfrac={self._win_frac}",
+                      file=sys.stderr)
             with self.timer.stage("retry"):
                 ctx = self._dispatch_batch_dp(
                     ctx["names"], ctx["a1"], ctx["l1"], ctx["a2"], ctx["l2"],

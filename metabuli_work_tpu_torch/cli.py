@@ -14,7 +14,10 @@ package's output text and exit codes:
 - the report and grading tools `extract`, `grade`, `classifiedRefiner`,
   `maketestsets`, `makeInclusionTestQueries`, `make-virus-benchmark-set`,
   `gradeGroup`, `gradeGroupByCoverage`, `gradeByCoverage`,
-  `gradeByCladeSize`, `mapping2taxon`.
+  `gradeByCladeSize`, `mapping2taxon`;
+- read grouping: `create-common-kmer-list`, `grouping`, `apply-group`;
+- the UniRef tools `create-uniref-tree`, `create-uniref-db`,
+  `create-unique-kmer-list`, `assign_uniref`, `uniref2taxonomy`.
 
     python -m metabuli_work_tpu_torch.cli classify reads.fq DB OUT job \\
         --seq-mode 1 [--device cuda|cpu]
@@ -590,6 +593,88 @@ def cmd_accession2taxid(args):
     print(f"accession2taxid: mapped {len(found)}/{len(wanted)} accessions -> {args.output}")
 
 
+def cmd_uniref2taxonomy(args):
+    """Map UniRef cluster assignments to NCBI taxa via a cluster->taxid
+    TSV (reference src/util/uniref2taxonomy.cpp)."""
+    mapping = {}
+    with open(args.cluster2taxid) as f:
+        for line in f:
+            parts = line.rstrip("\n").split("\t")
+            if len(parts) >= 2 and not line.startswith("#"):
+                mapping[parts[0]] = parts[1]
+    n = 0
+    with open(args.uniref_results) as fin, open(args.output, "w") as fout:
+        header = fin.readline()
+        fout.write(header.rstrip("\n") + "\ttaxID\n")
+        for line in fin:
+            parts = line.rstrip("\n").split("\t")
+            tid = mapping.get(parts[3], "0") if len(parts) > 3 else "0"
+            fout.write(line.rstrip("\n") + f"\t{tid}\n")
+            n += 1
+    print(f"uniref2taxonomy: {n} rows -> {args.output}")
+
+
+def cmd_create_uniref_tree(args):
+    from .uniref.tree import UnirefTree
+
+    tree = UnirefTree.from_xml(args.xml)
+    tree.save(args.output)
+    print(f"create-uniref-tree: {len(tree)} nodes -> {args.output}")
+
+
+def cmd_create_uniref_db(args):
+    from .uniref.db import build_uniref_db
+
+    build_uniref_db(args.dbdir, args.proteins, args.tree,
+                    k=args.kmer_len, syncmer=bool(args.syncmer),
+                    smer_len=args.smer_len)
+
+
+def cmd_unique_kmer(args):
+    from .uniref.db import build_unique_kmer_db
+
+    build_unique_kmer_db(args.dbdir, args.proteins, k=args.kmer_len,
+                         syncmer=bool(args.syncmer), smer_len=args.smer_len)
+
+
+def cmd_assign_uniref(args):
+    from .uniref.classifier import assign_uniref
+
+    assign_uniref(args.queries, args.dbdir, args.outdir)
+
+
+def cmd_common_kmer(args):
+    from .index.common import build_common_kmer_db
+
+    build_common_kmer_db(args.dbdir, args.fasta_list, args.acc2taxid,
+                         args.taxonomy_dir, k=args.kmer_len,
+                         syncmer=bool(args.syncmer), smer_len=args.smer_len)
+
+
+def cmd_grouping(args):
+    from .readgroup.grouping import GroupingParams, run_grouping
+
+    params = GroupingParams(
+        syncmer=bool(args.syncmer), smer_len=args.smer_len,
+        min_edge_weight=args.min_edge, num_iterations=args.num_iteration,
+        convergence_threshold=args.convergence_thr,
+        neighbor_kmers=args.neighbor_kmers, seq_mode=args.seq_mode,
+    )
+    run_grouping(args.reads1, args.commondb, args.outdir, params, args.reads2)
+
+
+def cmd_apply_group(args):
+    from .readgroup.apply import ApplyParams, apply_groups
+
+    params = ApplyParams(
+        weight_mode=args.weight_mode, min_vote_score=args.min_vote_score,
+        score_col=args.score_col, read_id_col=args.readid_col,
+        taxid_col=args.taxid_col,
+    )
+    apply_groups(args.groups, args.group_map, args.taxdb, args.org_results,
+                 args.outdir, params)
+
+
 def cmd_taxdump(args):
     from .index.format import load_db_taxonomy
 
@@ -748,6 +833,12 @@ def main(argv=None):
     p.add_argument("--random-seed", type=int, default=42)
     p.set_defaults(func=cmd_virus_benchmark)
 
+    p = sub.add_parser("uniref2taxonomy", help="attach taxids to UniRef results")
+    p.add_argument("uniref_results")
+    p.add_argument("cluster2taxid")
+    p.add_argument("output")
+    p.set_defaults(func=cmd_uniref2taxonomy)
+
     p = sub.add_parser("databases",
                        help="list / download prebuilt databases")
     p.add_argument("name", nargs="?", default=None)
@@ -797,6 +888,34 @@ def main(argv=None):
     p.add_argument("dbdir")
     p.add_argument("--output", default=None)
     p.set_defaults(func=cmd_make_aa_offset)
+
+    p = sub.add_parser("create-uniref-tree", help="parse UniRef100 XML into cluster tree")
+    p.add_argument("xml")
+    p.add_argument("output", help="output .npz path")
+    p.set_defaults(func=cmd_create_uniref_tree)
+
+    p = sub.add_parser("create-uniref-db", help="AA k-mer DB with UniRef LCA labels")
+    p.add_argument("dbdir")
+    p.add_argument("proteins", help="protein FASTA")
+    p.add_argument("tree", help="uniref tree .npz")
+    p.add_argument("--kmer-len", type=int, default=12)
+    p.add_argument("--syncmer", type=int, default=0)
+    p.add_argument("--smer-len", type=int, default=5)
+    p.set_defaults(func=cmd_create_uniref_db)
+
+    p = sub.add_parser("create-unique-kmer-list", help="AA k-mers unique to one protein")
+    p.add_argument("dbdir")
+    p.add_argument("proteins")
+    p.add_argument("--kmer-len", type=int, default=12)
+    p.add_argument("--syncmer", type=int, default=0)
+    p.add_argument("--smer-len", type=int, default=5)
+    p.set_defaults(func=cmd_unique_kmer)
+
+    p = sub.add_parser("assign_uniref", help="classify proteins over UniRef clusters")
+    p.add_argument("queries", help="protein FASTA")
+    p.add_argument("dbdir")
+    p.add_argument("outdir")
+    p.set_defaults(func=cmd_assign_uniref)
 
     p = sub.add_parser("maketestsets", help="rank-stratified exclusion benchmark sets")
     p.add_argument("assembly_list", help="TSV: assembly_path, taxid")
@@ -859,6 +978,43 @@ def main(argv=None):
     p.add_argument("--mappings", nargs="+", required=True,
                    help="NCBI accession2taxid master files")
     p.set_defaults(func=cmd_accession2taxid)
+
+    p = sub.add_parser("create-common-kmer-list", help="build shared-k-mer DB for grouping")
+    p.add_argument("dbdir")
+    p.add_argument("fasta_list")
+    p.add_argument("acc2taxid")
+    p.add_argument("--taxonomy-dir", required=True)
+    p.add_argument("--kmer-len", type=int, default=12)
+    p.add_argument("--syncmer", type=int, default=0)
+    p.add_argument("--smer-len", type=int, default=5)
+    p.set_defaults(func=cmd_common_kmer)
+
+    p = sub.add_parser("grouping", help="cluster reads by shared k-mers")
+    p.add_argument("reads1")
+    p.add_argument("reads2", nargs="?", default=None)
+    p.add_argument("commondb", help="common-kmer DB directory")
+    p.add_argument("outdir")
+    p.add_argument("--seq-mode", type=int, default=1)
+    p.add_argument("--syncmer", type=int, default=1)
+    p.add_argument("--smer-len", type=int, default=5)
+    p.add_argument("--min-edge", type=int, default=10)
+    p.add_argument("--num-iteration", type=int, default=10)
+    p.add_argument("--convergence-thr", type=float, default=0.01)
+    p.add_argument("--neighbor-kmers", type=int, default=0)
+    p.set_defaults(func=cmd_grouping)
+
+    p = sub.add_parser("apply-group", help="propagate group labels to members")
+    p.add_argument("groups")
+    p.add_argument("group_map")
+    p.add_argument("taxdb", help="DB dir (taxonomy.npz) or taxdump dir")
+    p.add_argument("org_results", help="original classifications TSV")
+    p.add_argument("outdir")
+    p.add_argument("--weight-mode", type=int, default=1)
+    p.add_argument("--min-vote-score", type=float, default=0.15)
+    p.add_argument("--score-col", type=int, default=5)
+    p.add_argument("--readid-col", type=int, default=2)
+    p.add_argument("--taxid-col", type=int, default=3)
+    p.set_defaults(func=cmd_apply_group)
 
     p = sub.add_parser("taxdump", help="export DB taxonomy as taxdump files")
     p.add_argument("dbdir")

@@ -45,12 +45,16 @@ from .minhash import minhash_similar, minhash_sketch
 from .orf import predict_orfs
 
 
-def extract_cds_kmers(seq: str, blocks, syncmer=False, smer_len=5):
-    """In-frame metamers of CDS blocks (start, end 0-based inclusive,
-    strand)."""
+def extract_cds_kmers(seq: str, blocks, syncmer=False, smer_len=5,
+                      k=None, aa_only=False):
+    """In-frame k-mers of CDS blocks (start, end 0-based inclusive,
+    strand): metamers by default, AA-only 12-mers for the common-k-mer
+    DB (k=12, aa_only=True: the reference's common build runs the same
+    block extraction with dna2aa scanners, IndexCreator.cpp:258-259)."""
     codes = seq_to_codes(seq)
     out = []
-    min_nt = 3 * KMER_LEN
+    kw = {} if k is None else {"k": k}
+    min_nt = 3 * (k or KMER_LEN)
     for start, end, strand in blocks:
         start = max(0, int(start))
         end = min(len(codes) - 1, int(end))
@@ -63,7 +67,7 @@ def extract_cds_kmers(seq: str, blocks, syncmer=False, smer_len=5):
         # the whole sequence's): the same k-mers, in O(block) time
         b0 = start if fwd else start + (end - start + 1 - used)
         fk = scan_frame(codes[b0:b0 + used], 0, used, fwd, syncmer=syncmer,
-                        smer_len=smer_len)
+                        smer_len=smer_len, aa_only=aa_only, **kw)
         out.append(fk.kmers)
     return np.concatenate(out) if out else np.zeros(0, np.uint64)
 

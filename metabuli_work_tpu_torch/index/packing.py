@@ -2,7 +2,10 @@
 
 Host-side numpy packing of the sorted index (pack_db_quad,
 pack_db_rows32, build_aa_hash), a disk cache of the packed layout and of
-its shards (load_or_pack_wide, load_or_shard), state_from_numpy, which
+its shards (load_or_pack_wide, load_or_shard), the narrow layouts that
+METABULI_WIDE_PROBE=0 / METABULI_HASH_PROBE=0 select (pack_db_blocks:
+64-byte rows of 4 entries, run starts block-aligned by align_runs4 or
+not; load_or_pack_narrow; entry-row shards), state_from_numpy, which
 turns the packed index and LCA tables into the tensors the path-DP
 device step reads, match_state_from_numpy, the raw sorted arrays plus
 bucket tables that the host-match step probes instead, and for an index
@@ -136,6 +139,57 @@ def pack_db_rows32(quad: np.ndarray, pad_entries: int = 256) -> np.ndarray:
     return blk.reshape(total // 32, 128)
 
 
+def pack_db_blocks(quad: np.ndarray, pad_entries: int = 256) -> np.ndarray:
+    """Reshape a [M, 4] u32 quad DB into 64-byte block rows [R, 16]
+    (4 entries per row), padded with all-ones sentinel entries (their
+    AA part never equals a query's): the narrow layout, whose candidate
+    window is a few block gathers (ops/match_torch._gather_blocks)."""
+    m = len(quad)
+    total = ((m + pad_entries + 3) // 4) * 4
+    blk = np.full((total, 4), 0xFFFFFFFF, dtype=np.uint32)
+    blk[:m] = quad
+    return blk.reshape(total // 4, 16)
+
+
+def align_runs4(values: np.ndarray, *payloads):
+    """Pad the sorted entry arrays so every AA run starts on a 4-entry
+    (64-byte block) boundary: with run lengths known from the hash, the
+    candidate window then reads exactly ceil(cap/4) block rows and needs
+    no shuffle.
+
+    Padding entries have all-ones values (their AA part never matches a
+    query) and zero payloads.  Returns (values_p, *payloads_p,
+    starts_padded) where starts_padded are the per-unique-AA run starts
+    in the padded coordinate space (build_aa_hash's starts_override)."""
+    aa = (np.asarray(values) >> np.uint64(DNA_BITS))
+    _, starts = np.unique(aa, return_index=True)
+    m = len(values)
+    lens = np.diff(starts, append=m)
+    new_lens = ((lens + 3) // 4) * 4
+    new_starts = np.zeros(len(starts), dtype=np.int64)
+    np.cumsum(new_lens[:-1], out=new_starts[1:])
+    total = int(new_lens.sum())
+    run_of = np.repeat(np.arange(len(starts)), lens)
+    idx = np.arange(m) - starts[run_of] + new_starts[run_of]
+    values_p = np.full(total, np.uint64(0xFFFFFFFFFFFFFFFF),
+                       dtype=np.uint64)
+    values_p[idx] = values
+    outs = [values_p]
+    for p in payloads:
+        p = np.asarray(p)
+        pp = np.zeros(total, dtype=p.dtype)
+        pp[idx] = p
+        outs.append(pp)
+    outs.append(new_starts)
+    return tuple(outs)
+
+
+def aligned_bytes(runs: np.ndarray) -> int:
+    """Bytes of the block-aligned narrow layout of an index whose AA runs
+    have the lengths `runs` (16 B an entry, every run padded to 4)."""
+    return int((((runs + 3) // 4) * 4).sum()) * 16
+
+
 def shard_quad_index(quad: np.ndarray, n_shards: int, wide: bool = True):
     """Cut a pack_db_quad [M, 4] uint32 array into n_shards contiguous
     metamer ranges at AA-part boundaries, each packed into 512-byte rows
@@ -150,13 +204,14 @@ def shard_quad_index(quad: np.ndarray, n_shards: int, wide: bool = True):
     and resolve to a zero run length.  match_kmers_quad takes db_m as
     the padded row space when it is given none.
 
-    Returns (quads [n, R32, 128] uint32, hash_tables [n, R, 128] uint32,
-    log2_rows, chain, counts int32 [n]).
+    wide=False (METABULI_WIDE_PROBE=0): each shard is S entry rows
+    [S, 4] (S the largest shard's entry count, the rest all-ones pads)
+    with 16-u32 hash rows of 5 slots; a hash miss resolves to lo = S.
+
+    Returns (quads [n, R32, 128] uint32 — [n, S, 4] narrow, hash_tables
+    [n, R, 128] uint32 — [n, R, 16] narrow, log2_rows, chain, counts
+    int32 [n]).
     """
-    if not wide:
-        raise NotImplementedError(
-            "only the wide-row shard layout is ported (ROADMAP.md, Queue 1 "
-            "item 25)")
     M = quad.shape[0]
     v = quad[:, 0].astype(np.uint64) | (quad[:, 1].astype(np.uint64) << 32)
     aa = v >> np.uint64(DNA_BITS)
@@ -167,13 +222,20 @@ def shard_quad_index(quad: np.ndarray, n_shards: int, wide: bool = True):
             t += 1
         bounds.append(min(t, M))
     bounds.append(M)
-    hash_kw = dict(slots=WIDE_SLOTS, row_u32=WIDE_ROW_U32)
     counts = np.diff(bounds).astype(np.int32)
     S = max(int(counts.max(initial=0)), 1)
-    quads = np.stack([
-        pack_db_rows32(quad[bounds[i]:bounds[i + 1]],
-                       pad_entries=S - (bounds[i + 1] - bounds[i]) + 256)
-        for i in range(n_shards)])
+    if wide:
+        hash_kw = dict(slots=WIDE_SLOTS, row_u32=WIDE_ROW_U32)
+        quads = np.stack([
+            pack_db_rows32(quad[bounds[i]:bounds[i + 1]],
+                           pad_entries=S - (bounds[i + 1] - bounds[i]) + 256)
+            for i in range(n_shards)])
+    else:
+        hash_kw = {}
+        quads = np.full((n_shards, S, 4), np.uint32(0xFFFFFFFF),
+                        dtype=np.uint32)
+        for i in range(n_shards):
+            quads[i, :counts[i]] = quad[bounds[i]:bounds[i + 1]]
     shard_values = [v[bounds[i]:bounds[i + 1]] for i in range(n_shards)]
     builds = [build_aa_hash(sv, **hash_kw) for sv in shard_values]
     # uniform hash geometry: size every table for the largest shard and
@@ -281,18 +343,48 @@ def load_or_pack_wide(values, db_ef, sp_euk, *, max_chain, max_bytes,
             int(meta["chain"]), int(meta["db_m"]))
 
 
-def load_or_shard(values, db_ef, sp_euk, n_shards):
+def load_or_pack_narrow(values, db_ef, sp_euk, *, aligned, use_hash,
+                        max_chain, max_bytes):
+    """Narrow layout: (blocks [R,16] u32, hash_table [R',16] u32 or None
+    without the hash, log2_rows, chain, db_m).  aligned: run starts
+    padded to block boundaries (align_runs4; the hash then points into
+    the padded space and db_m counts the padding).  From the cache when
+    the same DB + geometry was packed before, else packed and cached."""
+    def make():
+        starts = None
+        v, ef, sp = values, db_ef, sp_euk
+        if aligned:
+            v, ef, sp, starts = align_runs4(values, db_ef, sp_euk)
+        arrays = {"rows": pack_db_blocks(pack_db_quad(v, ef, sp))}
+        log2_rows = chain = 0
+        if use_hash:
+            arrays["hash"], log2_rows, chain = build_aa_hash(
+                values, max_chain=max_chain, max_bytes=max_bytes,
+                starts_override=starts)
+        return arrays, {"log2_rows": log2_rows, "chain": chain,
+                        "db_m": len(v)}
+
+    arrays, meta = _cached(
+        (values, db_ef, sp_euk),
+        f"narrow:{int(aligned)}:{int(use_hash)}:{max_chain}:{max_bytes}",
+        make)
+    return (arrays["rows"], arrays.get("hash"), int(meta["log2_rows"]),
+            int(meta["chain"]), int(meta["db_m"]))
+
+
+def load_or_shard(values, db_ef, sp_euk, n_shards, wide=True):
     """shard_quad_index of the packed DB into n_shards — from the cache
-    when the same DB was cut into as many shards before (a streamed or
-    mesh classifier of another process or sequence mode), else cut fresh
-    and cached."""
+    when the same DB was cut into as many shards of the same layout
+    before (a streamed or mesh classifier of another process or sequence
+    mode), else cut fresh and cached."""
     def make():
         quads, hts, log2, chain, counts = shard_quad_index(
-            pack_db_quad(values, db_ef, sp_euk), n_shards)
+            pack_db_quad(values, db_ef, sp_euk), n_shards, wide=wide)
         return ({"quads": quads, "hts": hts, "counts": counts},
                 {"log2_rows": log2, "chain": chain})
 
-    arrays, meta = _cached((values, db_ef, sp_euk), f"shards:{n_shards}",
+    arrays, meta = _cached((values, db_ef, sp_euk),
+                           f"shards:{n_shards}" + ("" if wide else ":narrow"),
                            make)
     return (arrays["quads"], arrays["hts"], int(meta["log2_rows"]),
             int(meta["chain"]), arrays["counts"])
@@ -312,11 +404,13 @@ def _as_i32(a, device):
 def state_from_numpy(rows, hash_table, hash_log2_rows, hash_chain, db_m,
                      depth, lift, euler, ef_node, device):
     """Device state of a resident index: the packed rows and hash table
-    (uint32 bits carried as int32), their geometry, and the LCA tables
-    (int32).  Values are unchanged; only their dtype label is."""
+    (uint32 bits carried as int32; no hash table for the bisection
+    probe), their geometry, and the LCA tables (int32).  Values are
+    unchanged; only their dtype label is."""
     return {
         "db_quad": _as_i32(rows, device),
-        "hash_table": _as_i32(hash_table, device),
+        "hash_table": (None if hash_table is None
+                       else _as_i32(hash_table, device)),
         "hash_log2_rows": int(hash_log2_rows),
         "hash_chain": int(hash_chain),
         "db_m": int(db_m),
@@ -384,6 +478,16 @@ def match_state_from_numpy(values, taxids, species, bucket_pair, aa_lo,
         "db_values": torch.from_numpy(v).to(device),
         "db_taxids": _as_i32(taxids, device),
         "db_species": _as_i32(species, device),
+        **bucket_state_from_numpy(bucket_pair, aa_lo, bucket_shift,
+                                  bucket_steps, device),
+    }
+
+
+def bucket_state_from_numpy(bucket_pair, aa_lo, bucket_shift, bucket_steps,
+                            device):
+    """The bucket tables of match_torch.build_buckets on the device (the
+    u32 low AA halves as int32 bits), keyed as the probes take them."""
+    return {
         "bucket_lo": _as_i32(bucket_pair, device),
         "db_aa_lo": _as_i32(aa_lo, device),
         "bucket_shift": int(bucket_shift),

@@ -187,9 +187,10 @@ def new_accumulators(cap: int, n: int, device):
 
 def probe_range_step(qk, qf, qv, quad_r, hash_r, acc, *, cap: int,
                      kmer_format: int, hash_log2_rows: int, hash_chain: int):
-    """One range pass: probe one index range and fold its candidates
-    into `acc` IN PLACE (a fresh set per pass would multiply the peak by
-    the number of live temporaries).  Returns acc."""
+    """One range pass: probe one index range (wide rows or narrow entry
+    rows, packing.shard_quad_index; both carry the hash) and fold its
+    candidates into `acc` IN PLACE (a fresh set per pass would multiply
+    the peak by the number of live temporaries).  Returns acc."""
     out = match_torch.match_kmers_quad(
         qk, qf, qv, quad_r, cap=cap, kmer_format=kmer_format,
         hash_table=hash_r, hash_log2_rows=hash_log2_rows,
@@ -236,17 +237,24 @@ def fused_step_dp(reads1, lens1, db_quad, *, reads2=None, lens2=None,
                   smer_len: int = 5, path_width: int = 0, win_frac: int = 0,
                   path_block: int = 16, ra1=None, ra2=None, hash_table=None,
                   hash_log2_rows: int = 0, hash_chain: int = 0,
-                  db_m: int = None):
+                  db_m: int = None, aligned: bool = False, bucket_lo=None,
+                  db_aa_lo=None, bucket_shift: int = 0,
+                  bucket_steps: int = 0):
     """extract (+mate 2) -> probe of the resident index -> path DP per
     part -> compaction for one batch; returns finish_stream_step's
-    (packed_hdr, resident)."""
+    (packed_hdr, resident).  The index is any layout match_kmers_quad
+    probes: wide rows with the hash, narrow block rows (`aligned` run
+    starts or not) with the hash, or narrow block rows without it
+    (hash_table None: the bucket bisection over bucket_lo / db_aa_lo)."""
     qk, qp, qf, qs, qv, shapes, win_over = extract_queries_step(
         reads1, lens1, reads2, lens2, ra1, ra2, syncmer=syncmer,
         smer_len=smer_len, kmer_format=kmer_format, win_frac=win_frac)
     out = match_torch.match_kmers_quad(
         qk, qf, qv, db_quad, cap=cap, kmer_format=kmer_format,
         hash_table=hash_table, hash_log2_rows=hash_log2_rows,
-        hash_chain=hash_chain, db_m=db_m)
+        hash_chain=hash_chain, db_m=db_m, aligned=aligned,
+        bucket_lo=bucket_lo, db_aa_lo=db_aa_lo, bucket_shift=bucket_shift,
+        bucket_steps=bucket_steps)
     compact5 = compact5_fits(reads1.shape[0], reads1.shape[1],
                              reads2.shape[1] if reads2 is not None else None)
     return finish_stream_step(

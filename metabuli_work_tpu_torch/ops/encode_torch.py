@@ -78,6 +78,7 @@ def _codon_values(reads, table):
 
 
 def extract_batch(reads, lengths, syncmer: bool = False, smer_len: int = 5,
+                  k: int = KMER_LEN, aa_only: bool = False,
                   kmer_format: int = 2, reads_ra=None):
     """Extract metamers for a batch of reads.
 
@@ -86,6 +87,10 @@ def extract_batch(reads, lengths, syncmer: bool = False, smer_len: int = 5,
       lengths: int32 [B] true read lengths.
       syncmer: apply open-syncmer selection on the AA part.
       smer_len: s-mer length for syncmer selection.
+      k: amino acids per k-mer (8 metamer, 12 dna2aa).
+      aa_only: emit AA-only k-mers (no 24-bit DNA part) — the
+        KmerScanner_dna2aa family (reference KmerScanner.h:185-261); at
+        k=12 a k-mer is 60 bits, a non-negative int64.
       kmer_format: 2 = current metamer layout; 1 = legacy layout
         (OldMetamerScanner, KmerScanner.h:120-182): codons scanned
         right-to-left, AA part packed base-21, swapped pos formulas.
@@ -93,11 +98,10 @@ def extract_batch(reads, lengths, syncmer: bool = False, smer_len: int = 5,
         built here when absent.
 
     Returns:
-      kmers  int64 [B, 6, W] metamer bits (garbage where invalid),
+      kmers  int64 [B, 6, W] metamer bits (AA-only k-mers with aa_only) (garbage where invalid),
       pos    int32 [B, 6, W] query coordinates (reference formulas),
       valid  bool  [B, 6, W].
     """
-    k = KMER_LEN
     dev = reads.device
     B, Lmax = reads.shape
     W = max_windows(Lmax, k)
@@ -172,9 +176,12 @@ def extract_batch(reads, lengths, syncmer: bool = False, smer_len: int = 5,
             aa_part = pack_windows_base21(aa_m)
         else:
             aa_part = pack_windows(aa_m, 5)
-        num_m = torch.where(cvalid, num, 0)
-        dna_part = pack_windows(num_m, 3)
-        kmers = (aa_part << 24) | (dna_part & _DNA_MASK)
+        if aa_only:
+            kmers = aa_part
+        else:
+            num_m = torch.where(cvalid, num, 0)
+            dna_part = pack_windows(num_m, 3)
+            kmers = (aa_part << 24) | (dna_part & _DNA_MASK)
 
         # window validity: all k codons valid AND window in range
         wv = torch.ones((B, W), dtype=torch.bool, device=dev)

@@ -70,3 +70,31 @@ def test_compact_and_flatten_match_jax(w_c):
                                   tf[0].numpy())
     for a, b in zip(jf[1:], tf[1:]):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+@pytest.mark.parametrize("syncmer", [False, True], ids=["plain", "syncmer"])
+def test_aa_only_extract_batch_matches_jax(syncmer):
+    """AA-only 12-mers (the dna2aa scanners), no DNA part: bit-exact
+    against JAX, and per read the (k-mer, position) multiset of the
+    host scanner ops/encode_np.extract_query_kmers(aa_only=True)."""
+    from metabuli_work_tpu_torch.ops import encode_np
+
+    arr, lens = _reads(21 + syncmer, B=8, L=120)
+    jk, jp, jv = encode_jax.extract_batch(
+        jnp.asarray(arr), jnp.asarray(lens), syncmer=syncmer, k=12,
+        aa_only=True)
+    tk, tp, tv = encode_torch.extract_batch(
+        torch.from_numpy(arr), torch.from_numpy(lens), syncmer=syncmer,
+        k=12, aa_only=True)
+    np.testing.assert_array_equal(np.asarray(jk).view(np.int64), tk.numpy())
+    np.testing.assert_array_equal(np.asarray(jp), tp.numpy())
+    np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
+    assert tv.any() and int(tk[tv].min()) >= 0 and int(tk[tv].max()) < 1 << 60
+    for b in range(len(arr)):
+        seq = arr[b, :lens[b]].tobytes().decode()
+        km, pos, _ = encode_np.extract_query_kmers(
+            seq, syncmer=syncmer, k=12, aa_only=True)
+        v = tv[b].numpy()
+        got = sorted(zip(tk[b].numpy()[v].tolist(), tp[b].numpy()[v].tolist()))
+        assert got == sorted(zip(km.astype(np.int64).tolist(),
+                                 pos.astype(np.int64).tolist()))

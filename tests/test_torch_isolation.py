@@ -28,13 +28,17 @@ def test_sources_cover_the_parallel_package():
 
 
 def test_sources_cover_the_host_tools():
-    """The build options, upkeep, filter, taxonomy and report modules."""
+    """The build options, upkeep, filter, taxonomy and report modules,
+    read grouping and the UniRef tools."""
     rel = {os.path.relpath(p, PKG) for p in _sources()}
     for f in ("index/minhash.py", "index/orf.py", "index/prodigal.py",
               "index/builder.py", "index/update.py", "index/packing.py",
               "classify/filter.py", "taxonomy/gtdb.py", "taxonomy/tools.py",
               "report/grade.py", "report/extract.py", "report/refiner.py",
-              "report/benchmark.py", "report/virus_benchmark.py", "cli.py"):
+              "report/benchmark.py", "report/virus_benchmark.py", "cli.py",
+              "index/common.py", "ops/encode_aa.py", "readgroup/grouping.py",
+              "readgroup/apply.py", "uniref/tree.py", "uniref/db.py",
+              "uniref/classifier.py"):
         assert f in rel, f
 
 
