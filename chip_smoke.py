@@ -5,16 +5,21 @@
 1. prints the card (nvidia-smi name and power limit) and the torch/CUDA
    versions;
 2. builds the two path-DP CUDA kernels (csrc/path_dp_warp.cu, the warp
-   variant for cap <= 32; csrc/path_dp.cu, the block variant for larger
-   caps; one nvcc each, in parallel) and prints the build time;
+   variant for cap <= 32; csrc/path_dp.cu, the block variant, a warp a
+   lane, for larger caps; one nvcc each, in parallel) and prints the
+   build time;
 3. holds the kernels against their plain torch version on the card, for
    exact equality, over the small parity grid, the shapes where the
    kernels branch (cap 32 | 33, a partial block, W ending inside a
    window tile, S = 1 and 3, block overflow), the empty case, random
    cases at main-path shapes, and the long rows and mate pairs that
    --seq-mode 3 and 2 give them (W in the thousands, both path layouts,
-   two launches over the same lanes with different W); checks that each
-   case went to the variant its cap selects;
+   two launches over the same lanes with different W), and caps 33 to
+   1100 of a many-species database (one candidate a species, ties, a
+   live count past 64, S = 1 and 3, block overflow, W ending inside a
+   staged tile, more than 48 KB of shared memory at cap 384, the
+   global-scratch ring at cap 1100); checks that each case went to the
+   variant its cap selects;
 4. builds (or loads from ~/.cache) a syncmer DB of 8 genomes x 4 Mb in 2
    genera and drives its paths on it through Classifier(device="cuda")
    and classify_file, each after a one-batch warm-up, each with the
@@ -64,7 +69,7 @@
      mechanism, not a speed-up).
    after those, so that every earlier path runs as it did before them:
    - reader: the single-end reads through the native reader and
-     through the Python reader on one classifier, three times each in
+     through the Python reader on one classifier, twice each in
      turns, equal read for read, with the input stage's ms a batch, the
      dispatch stage's ms a call and reads/s of each run;
    - reference-format (diffIdx) and reference-format (deltaIdx.mtbl):
@@ -132,7 +137,7 @@
      to the wide resident run's (tax_cnt and top_species included); each
      prints the layout's device bytes against the wide layout's, the
      aligned padding factor, launches, stage table and reads/s, and the
-     five resident layouts then run 5 times each in turns (reads/s of
+     five resident layouts then run 3 times each in turns (reads/s of
      every run);
    - aa-only extraction: extract_batch(aa_only=True, k=12) on the card
      over the single-end reads, plain and syncmer, equal to the CPU run
@@ -147,6 +152,16 @@
      create-uniref-tree, create-uniref-db, create-unique-kmer-list,
      assign_uniref and uniref2taxonomy as CLI subprocesses; fails unless
      every exact-copy query lands on its own cluster or an ancestor;
+   after those, so that every earlier path and phase runs as before it:
+   - high-cap single-end: a second syncmer DB (cached under ~/.cache) of
+     a genus of 44 species and one of 4, 512 kb each, every species 1%
+     of the bases away from its genus's random ancestor, so the setup
+     cap (the 99.9% AA-run quantile) is above 32 (it prints it and fails
+     at 32 or less); 8,192 reads of 150 bp (1% errors, half reverse-
+     complemented), batch 1024, after a one-batch warm-up; every launch
+     must be the cap > 32 kernel's; the first 256 reads equal to the
+     CPU run's (started from the knobs the card's retry ladder settled
+     at);
    For every path it checks that the plain DP never ran on the card,
    that every launch at cap <= 32 went to the warp variant, that >= 95%
    of reads land on their source species or genus, and that a subset
@@ -158,9 +173,11 @@
    holds the kernel against the plain version on the path's own
    captured input for exact equality ("parity main-path" lines), and
    prints the kernel's time per launch beside its bound and the plain
-   version's time (at the single-end path's first launch also the block
-   variant's time on the same input), and launches x ms/launch beside
-   the single-end run's wall time.
+   version's time, the byte bound and the compare bound (same-species
+   predecessor lookups of the input) apart (at the single-end path's
+   first launch also the block variant's time on the same input; on the
+   high-cap phase's input the time the earlier cap > 32 kernel took),
+   and launches x ms/launch beside the single-end run's wall time.
 
 With --profile every path is driven once more under torch.profiler (CPU
 + CUDA activities) after its checks: the sum of all device kernel and
@@ -195,6 +212,12 @@ from unittest import mock
 import numpy as np
 import torch
 
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests"))
+from torch_dp_cases import (EDGES, GRID, HIGH_CAP, LONG_W,  # noqa: E402
+                            edge_case, flipped_inputs, high_cap_case,
+                            overflow_case, random_case)
+
 N_GENOMES = 8
 GENOME_LEN = 4_000_000
 N_READS = 16384
@@ -208,11 +231,11 @@ MID_LONG = (24_000, 36_000)      # rows >= 2^14 nt: the 7-column layout
 VERY_LONG = 150_000              # beyond the 64-kb row cap: chunked
 N_HOST_MATCH = 4096
 N_DIST = 4096                    # reads of the two-process path
-READER_TURNS = 3                 # runs of the single-end reads per reader
+READER_TURNS = 2                 # runs of the single-end reads per reader
 N_CLI = 4096                     # reads of the CLI phase
 STREAM_GB = 0.25                 # budget that cuts the index into 4 ranges
 OVER_CAP = 66_000                # a little beyond the 64-kb row cap
-ORF_GENOMES = 8                  # ORF build: gene-structured genomes
+ORF_GENOMES = 4                  # ORF build: gene-structured genomes
 ORF_MIN_RIGHT = 0.9              # its reads at source species or genus
 NINTH_LEN = 4_000_000            # updateDB / accession level: one more genome
 N_NINTH = 2048                   # its reads
@@ -221,28 +244,6 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate
 ALU_OPS_PER_S = 67e12            # H100 SXM 32-bit non-tensor peak
 QUEUE_CYCLES = 50_000_000        # ~25 ms of device spin while the host
                                  # enqueues a timed run (see time_cuda)
-# parity cases where the kernels branch, as in tests/torch_dp_cases.py:
-# (name, cap, G, W, max_shift, kmer_format, dyn_gap, block_w, density)
-EDGES = [
-    ("cap32", 32, 12, 9, 3, 2, True, 8, 0.4),
-    ("cap33", 33, 12, 9, 3, 2, True, 8, 0.4),
-    ("G18-S1", 8, 18, 9, 1, 2, False, 8, 0.4),
-    ("W1-S1", 4, 12, 1, 1, 2, False, 4, 0.6),
-    ("W1-S3", 4, 12, 1, 3, 2, True, 4, 0.6),
-    ("W13-S3", 12, 18, 13, 3, 2, True, 16, 0.5),
-    ("W17-S2-kf1", 5, 18, 17, 2, 1, False, 8, 0.5),
-    ("overflow-cap12", 12, 18, 16, 1, 2, False, 2, 0.9),
-]
-# long rows and mate pairs, as in tests/torch_dp_cases.py: the EDGES
-# fields plus the compact5 settings to run
-LONG_W = [
-    ("W3333-S3-overflow", 8, 24, 3333, 3, 2, True, 16, 0.3, (True, False)),
-    ("W2400-S3-bw512", 8, 24, 2400, 3, 2, True, 512, 0.3, (False,)),
-    ("W5461-S1", 4, 12, 5461, 1, 2, False, 64, 0.4, (True, False)),
-    ("W2001-cap40-block", 40, 12, 2001, 3, 2, True, 32, 0.1, (False,)),
-    ("mate1-W36", 8, 1536, 36, 3, 2, True, 16, 0.5, (True,)),
-    ("mate2-W33", 8, 1536, 33, 3, 2, True, 16, 0.5, (True,)),
-]
 ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 _COMP = np.zeros(256, dtype=np.uint8)
 for _a, _b in zip(b"ACGT", b"TGCA"):
@@ -263,60 +264,6 @@ def card_line():
 
 
 # ---------------------------------------------------------------- parity
-def random_case(rng, cap, G, W, n_species=5, density=0.4, dyn_gap=False):
-    """Candidate tensors biased toward consecutive chains in both lane
-    directions (the cases of tests/test_dp_pallas.py)."""
-    sel = rng.random((cap, G, W)) < density
-    species = rng.integers(1, n_species + 1, size=(cap, G, W)).astype(np.int32)
-    species = species | (rng.integers(0, 2, size=species.shape)
-                         << 30).astype(np.int32)
-    dna = rng.integers(0, 1 << 24, size=(cap, G, W)).astype(np.int32)
-    for w in range(1, W):
-        m = rng.random((cap, G))
-        new3 = rng.integers(0, 8, size=(cap, G))
-        fwd_next = (((dna[:, :, w - 1] << 3) & 0xFFFFFF) | new3)
-        rev_next = ((dna[:, :, w - 1] >> 3) | (new3 << 21))
-        dna[:, :, w] = np.where(m < 0.35, fwd_next,
-                                np.where(m < 0.7, rev_next,
-                                         dna[:, :, w])).astype(np.int32)
-    rh = rng.integers(0, 1 << 16, size=(cap, G, W)).astype(np.int32)
-    ham = rng.integers(0, 8, size=(cap, G, W)).astype(np.int32)
-    if dyn_gap:
-        gaps = rng.integers(1, 4, size=(G, W)).astype(np.int32)
-        base = np.cumsum(gaps, axis=1) * 3
-        pos = np.broadcast_to(base[None], (cap, G, W)).astype(np.int32)
-    else:
-        pos = np.broadcast_to((np.arange(W, dtype=np.int32) * 3)[None, None],
-                              (cap, G, W)).astype(np.int32)
-    return sel, species, dna, rh, ham, pos
-
-
-def overflow_case():
-    rng = np.random.default_rng(7)
-    cap, G, W = 4, 12, 12
-    sel, species, _, rh, ham, pos = random_case(rng, cap, G, W, n_species=2,
-                                                density=0.95)
-    dna = rng.integers(0, 1 << 24, size=(cap, G, W)).astype(np.int32)
-    for w in range(1, W, 2):
-        new3 = rng.integers(0, 8, size=(cap, G))
-        fwd_next = (((dna[:, :, w - 1] << 3) & 0xFFFFFF) | new3)
-        rev_next = ((dna[:, :, w - 1] >> 3) | (new3 << 21))
-        fwd_lane = (np.arange(G) % 6 < 3)[None, :]
-        dna[:, :, w] = np.where(fwd_lane, fwd_next, rev_next).astype(np.int32)
-    return sel, species, dna, rh, ham, pos
-
-
-def flipped_cuda(case, kmer_format):
-    sel, species, dna, rh, ham, pos = case
-    G = sel.shape[1]
-    frame = np.arange(G) % 6
-    rev = ((frame >= 3) if kmer_format != 1 else (frame < 3))[None, :, None]
-    fl = lambda a: np.ascontiguousarray(np.where(rev, a[:, :, ::-1], a))
-    sp_m = np.where(fl(sel), fl(species), -1).astype(np.int32)
-    return [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).cuda()
-            for a in (sp_m, fl(dna), fl(rh), fl(ham), fl(pos))]
-
-
 def check(max_err, name, which, got, ref):
     """One kernel result against the plain version's: paths, valid flags
     and overflow count equal, or it raises.  Returns the max abs error
@@ -333,12 +280,16 @@ def check(max_err, name, which, got, ref):
     return err
 
 
-def parity(dp_cuda):
-    """Kernels vs plain version on the card; returns the max abs error
-    per variant over all cases (must be 0) and the number of cases."""
+def parity_cases():
+    """(name, case, max_shift, kmer_format, dyn_gap, block_w, compact5,
+    min_cons, min_cons_euk) of the parity grid: the cases of
+    tests/torch_dp_cases.py (the JAX grid, block overflow, the shapes
+    where the kernels branch, long rows and mate pairs, caps above 32 of
+    a many-species database), the empty case, cap 384 of three species
+    (a lane's 12 chunks of candidates, long hash chains) and random
+    inputs at main-path shapes."""
     cases = []
-    for dyn_gap, S, kf in [(False, 1, 2), (False, 3, 2), (True, 3, 2),
-                           (False, 1, 1)]:
+    for dyn_gap, S, kf in GRID:
         case = random_case(np.random.default_rng(42 + S + kf), 4, 12, 9,
                            dyn_gap=dyn_gap)
         for compact5 in (True, False):
@@ -352,28 +303,42 @@ def parity(dp_cuda):
                   True, 2, 3))
     for name, cap, G, W, S, kf, dyn_gap, bw, density, c5s in \
             [e + ((True, False),) for e in EDGES] + LONG_W:
-        rng = np.random.default_rng(len(name) + cap + G + W)
-        case = random_case(rng, cap, G, W, n_species=3, density=density,
-                           dyn_gap=dyn_gap)
+        case = edge_case(name, cap, G, W, density, dyn_gap)
         for compact5 in c5s:
             cases.append((f"edge {name} compact5={compact5}", case, S, kf,
                           dyn_gap, bw, compact5, 2, 3))
-    # cap 384 puts the block variant's ring in global scratch (over 64 KB
-    # a block) and gives each thread two candidates
     cases.append(("wide cap=384 G=24 W=10",
                   random_case(np.random.default_rng(2), 384, 24, 10,
                               n_species=3, density=0.7, dyn_gap=True),
                   3, 2, True, 16, True, 2, 3))
+    for name, cap, G, W, S, kf, dyn_gap, bw, density, mode in HIGH_CAP:
+        case = high_cap_case(name, cap, G, W, density, dyn_gap, mode)
+        for compact5 in (True, False):
+            cases.append((f"high-cap {name} compact5={compact5}", case, S,
+                          kf, dyn_gap, bw, compact5, 2, 3))
     for cap in (8, 16):
         cases.append((f"main-path shapes cap={cap} G=6144 W=40",
                       random_case(np.random.default_rng(cap), cap, 6144, 40,
                                   density=0.6, dyn_gap=True),
                       3, 2, True, 16, True, 2, 3))
+    return cases
+
+
+def parity(dp_cuda):
+    """Kernels vs plain version on the card; returns the max abs error
+    per variant over all cases (must be 0) and the number of cases."""
     max_err = {"warp": 0, "block": 0}
     n_checks = 0
+    # the block variant's branches: more than 48 KB of dynamic shared
+    # memory at cap 384, the ring in global scratch at cap 1100
+    plans = {cap: dp_cuda.block_plan(cap, 3) for cap in (48, 384, 1100)}
+    print(f"block variant plans (ring on chip, shared bytes a block, "
+          f"windows a tile) at S=3: {plans}")
+    assert plans[384][0] and plans[384][1] > 48 * 1024
+    assert not plans[1100][0]
 
-    for name, case, S, kf, dyn_gap, bw, c5, mc, mce in cases:
-        ins = flipped_cuda(case, kf)
+    for name, case, S, kf, dyn_gap, bw, c5, mc, mce in parity_cases():
+        ins = [torch.from_numpy(a).cuda() for a in flipped_inputs(*case, kf)]
         kw = dict(min_cons=mc, min_cons_euk=mce, max_shift=S, kmer_format=kf,
                   dyn_gap=dyn_gap, block_w=bw, compact5=c5)
         ref = dp_cuda.path_dp_blocked_ref(*ins, **kw)
@@ -641,23 +606,44 @@ def time_cuda(fn, reps, queue_ahead=False, warm=True):
     return t0.elapsed_time(t1) / reps
 
 
+def species_lookups(sp, S):
+    """Same-species predecessor lookups the reference makes on this input:
+    for every live candidate, the entries of its species in the nearest
+    of its S predecessor windows that holds that species (where it stops
+    looking).  Counted on the card in slices of lanes."""
+    cap, G, W = sp.shape
+    total = 0
+    step = max(1, (1 << 26) // max(1, cap * cap * W))
+    for g0 in range(0, G, step):
+        x = sp[:, g0:g0 + step]
+        found = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+        for s in range(1, min(S, W - 1) + 1):
+            cur, prev = x[:, :, s:], x[:, :, :-s]
+            n = ((cur[:, None] == prev[None]) & (prev[None] >= 0)).sum(1)
+            use = (n > 0) & (cur >= 0) & ~found[:, :, s:]
+            total += int(n[use].sum())
+            found[:, :, s:] |= n > 0
+    return total
+
+
 def kernel_bound_ms(args, kw):
-    """Least time for the work: inputs read once + outputs written once
-    over the memory rate, against the live predecessor pairs this input
-    needs (8 int32 ops each: species test, shift, mask, compare, gap,
-    score max, key min, select) over the 32-bit ALU peak."""
+    """Least time for the work, the larger of: inputs read once + outputs
+    written once over the memory rate; the same-species predecessor
+    lookups this input needs (8 int32 ops each: species test, shift,
+    mask, compare, gap, score max, key min, select) over the 32-bit ALU
+    peak.  Returns (bound ms, "bytes" or "operations", byte bound ms,
+    compare bound ms, lookups)."""
     sp = args[0]
     cap, G, W = sp.shape
     bw, S = kw["block_w"], kw["max_shift"]
     n_cols = 5 if kw["compact5"] else 7
     nbytes = 5 * cap * G * W * 4 + n_cols * bw * G * 4 + bw * G + 4
-    live = (sp >= 0).sum(0).double()                    # [G, W]
-    pairs = sum(float((live[:, s:] * live[:, :-s]).sum())
-                for s in range(1, S + 1) if s < W)
+    lookups = species_lookups(sp, S)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 8 * pairs / ALU_OPS_PER_S * 1e3
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
-                                   else "operations")
+    ops_ms = 8 * lookups / ALU_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations",
+            bytes_ms, ops_ms, lookups)
 
 
 KEEP_INPUTS = 6     # launches per path whose inputs are kept for timing
@@ -765,7 +751,7 @@ def stage_table(name, clf, card):
     print(clf.timer.report())
 
 
-def time_shapes(name, r, dp_cuda, card, max_err, reps=50, plain_reps=3):
+def time_shapes(name, r, dp_cuda, card, max_err, reps=50, plain_reps=1):
     """Each kept launch input of a path: the kernel held against the
     plain version on it (exact, or it raises), then timed back to back
     on the device; returns {(cap, W, compact5): (ms, bound_ms, bound_by,
@@ -790,12 +776,18 @@ def time_shapes(name, r, dp_cuda, card, max_err, reps=50, plain_reps=3):
         del ref[:], got
         ms = time_cuda(lambda: dp_cuda.path_dp_blocked(*args, **kw), reps,
                        queue_ahead=True)
-        b_ms, b_by = kernel_bound_ms(args, kw)
+        b_ms, b_by, bytes_ms, ops_ms, lookups = kernel_bound_ms(args, kw)
         timed[key] = (ms, b_ms, b_by, plain_ms, err)
         print(f"{name}: path_dp {which} kernel at {shape}: "
               f"{ms:.4f} ms/launch, bound {b_ms:.5f} ms ({b_by}), "
-              f"{ms / b_ms:.1f}x bound, plain version {plain_ms:.3f} ms, "
-              f"on {card}")
+              f"{ms / b_ms:.1f}x bound (byte bound {bytes_ms:.5f} ms, "
+              f"compare bound {ops_ms:.6f} ms for {lookups} same-species "
+              f"lookups), plain version {plain_ms:.3f} ms, on {card}")
+        if which == "block" and key in EARLIER_BLOCK_MS:
+            old = EARLIER_BLOCK_MS[key]
+            print(f"{name}: the earlier cap > 32 kernel (one block a lane) "
+                  f"on this input: {old:.4f} ms/launch on NVIDIA H100 80GB "
+                  f"HBM3, 700.00 W ({old / ms:.1f}x this kernel's time)")
     return timed
 
 
@@ -1505,7 +1497,7 @@ def cli_tools_phase(fa, src, ref_dir, upd, acc, removed, card):
 # ------------- narrow and bisection probes, AA-only extraction, read
 # groups, UniRef
 N_NARROW = 4096                  # reads of a narrow-probe phase
-NARROW_TURNS = 5                 # timed runs of each layout, in turns
+NARROW_TURNS = 3                 # timed runs of each layout, in turns
 NARROW = (
     ("wide (4,096 reads)", {}),
     ("narrow aligned", {"METABULI_WIDE_PROBE": "0"}),
@@ -1837,6 +1829,128 @@ def uniref_phase(fa, seed, card):
     assert all(hit[True]), "uniref: an exact copy left its own lineage"
 
 
+# ------------------------------------------------ high-cap single-end
+HIGHCAP = "high-cap single-end"
+HC_SPECIES = (44, 4)             # species of the high-cap DB's two genera
+HC_LEN = 512_000                 # bases a genome
+HC_DIV = 0.01                    # each species' divergence from its genus
+HC_READS = 8192
+HC_CPU = 256                     # reads held against the CPU run
+# the cap > 32 kernel that the warp-per-lane design replaced (one block a
+# lane, a cap x cap scan a window), timed by this script's time_shapes on
+# this phase's captured inputs on an NVIDIA H100 80GB HBM3, 700.00 W:
+# ms a launch by (cap, W, compact5)
+EARLIER_BLOCK_MS = {(84, 36, True): 3.51628173828125}
+
+
+def highcap_taxonomy(Taxonomy):
+    """root(1) -> genera HA(2), HB(3) -> species 4.. (HC_SPECIES[0] in
+    HA, then HC_SPECIES[1] in HB)."""
+    na, nb = HC_SPECIES
+    n = na + nb
+    return Taxonomy(np.array([0, 1, 1, 1] + [2] * na + [3] * nb),
+                    np.array([0, 0, 1, 1] + [2] * n),
+                    np.array([0, 0, 1, 2] + [3 + i for i in range(n)]),
+                    ["no rank", "genus", "species"],
+                    ["root", "HA", "HB"] + [f"HSpecies{i}" for i in range(n)],
+                    np.array([0, 1, 301, 302] + [3000 + i for i in range(n)]))
+
+
+def build_or_load_highcap_db():
+    """Syncmer DB of a many-species genus: every species of a genus is
+    its random ancestor with HC_DIV of the bases mutated, so an AA 8-mer
+    of the genus occurs once in almost every species and the AA runs
+    are about as long as the genus has species.  Cached under ~/.cache
+    by config key."""
+    from metabuli_work_tpu_torch.index.builder import IndexBuilder
+    from metabuli_work_tpu_torch.index.format import KmerIndex
+    from metabuli_work_tpu_torch.taxonomy import Taxonomy
+
+    tax = highcap_taxonomy(Taxonomy)
+    na, nb = HC_SPECIES
+    cache = os.path.join(os.path.expanduser("~/.cache"),
+                         f"mwt_torch_highcap_db_{na}_{nb}_{HC_LEN}.npz")
+    meta = {"kmer_format": 2, "syncmer": True, "smer_len": 5,
+            "reduced_aa": 0, "mask_mode": 0, "mask_prob": 0.9,
+            "skip_redundancy": 1}
+    if os.path.exists(cache):
+        with np.load(cache) as z:
+            genomes = [g.decode() for g in z["genomes"]]
+            return KmerIndex(z["v"], z["t"], z["s"], tax, meta), genomes, True
+    rng = np.random.default_rng(30)
+    builder = IndexBuilder(tax, syncmer=True, mask_mode=0)
+    ancestors = [ACGT[rng.integers(0, 4, size=HC_LEN)] for _ in range(2)]
+    genomes = []
+    for i in range(na + nb):
+        g = ancestors[int(i >= na)].copy()
+        mut = rng.random(HC_LEN) < HC_DIV
+        g[mut] = ACGT[rng.integers(0, 4, size=int(mut.sum()))]
+        genomes.append(g.tobytes().decode())
+        builder.add_sequence(genomes[-1], 4 + i)
+    index = builder.finalize()
+    os.makedirs(os.path.dirname(cache), exist_ok=True)
+    tmp = cache + ".tmp.npz"
+    np.savez(tmp, v=index.values, t=index.taxids, s=index.species,
+             genomes=np.array([g.encode() for g in genomes]))
+    os.replace(tmp, cache)
+    return index, genomes, False
+
+
+def highcap_phase(dp_cuda, classifier_of, fa, runs, card):
+    """HC_READS single-end reads of the many-species DB through
+    Classifier(device="cuda"): the setup cap (the 99.9% AA-run quantile)
+    must exceed 32, so every launch is the cap > 32 kernel; the first
+    HC_CPU reads equal to the CPU run's.  The kernel's times, bounds and
+    parity on the captured inputs come with every path's at the end."""
+    na, nb = HC_SPECIES
+    t0 = time.perf_counter()
+    index, genomes, hit = build_or_load_highcap_db()
+    t_db = time.perf_counter() - t0
+    reads, src = simulate_reads(genome_matrix(genomes),
+                                np.random.default_rng(31), HC_READS, READ_LEN)
+    write_fasta(fa("hc_reads.fna"), reads)
+    write_fasta(fa("hc_warm.fna"), reads[:BATCH])
+    write_fasta(fa("hc_cpu.fna"), reads[:HC_CPU])
+    t0 = time.perf_counter()
+    clf = classifier_of(index, "cuda")
+    setup = time.perf_counter() - t0
+    cap0 = clf.cap
+    print(f"{HIGHCAP}: DB of {na} + {nb} species in 2 genera x {HC_LEN} bp "
+          f"({100 * HC_DIV:g}% per species from its genus's ancestor), "
+          f"{index.size} entries ({'cache hit' if hit else 'built'}, "
+          f"{t_db:.1f} s); AA runs: 99.9% quantile {index.cap_aa_run()}, "
+          f"longest {index.max_aa_run()}; classifier setup {setup:.1f} s, "
+          f"setup cap {cap0}; on {card}")
+    assert cap0 > dp_cuda.WARP_MAX_CAP, \
+        f"{HIGHCAP}: setup cap {cap0} takes the warp variant"
+    clf.classify_file(fa("hc_warm.fna"))
+    r = runs[HIGHCAP] = drive(dp_cuda, clf,
+                              lambda: clf.classify_file(fa("hc_reads.fna")))
+    assert r["launches"] > 0 and r["counts"]["warp"] == 0 \
+        and r["counts"]["block"] == r["launches"], \
+        f"{HIGHCAP}: launches {r['counts']}, not all the cap > 32 kernel"
+    check_path(HIGHCAP, r, HC_READS, src, dp_cuda, card, species=4 + src,
+               genus=2 + (src >= na))
+    print(f"{HIGHCAP}: every launch the cap > 32 kernel "
+          f"({r['counts']['block']} of {r['launches']}); cap after the "
+          f"warm-up and the run {clf.cap} (setup {cap0})")
+    stage_table(HIGHCAP, clf, card)
+    # the CPU run starts from the knobs the card's retry ladder settled
+    # at, so it takes one dispatch a batch (its plain DP at cap 84 is
+    # minutes a climb); the long-read CPU check climbs the ladder itself
+    cpu = classifier_of(index, "cpu")
+    for knob in ("cap", "_path_block", "_path_width", "_win_frac"):
+        setattr(cpu, knob, getattr(clf, knob))
+    clf = None
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu_check(HIGHCAP, r["results"][:HC_CPU],
+              cpu.classify_file(fa("hc_cpu.fna")))
+    print(f"{HIGHCAP} CPU check took {time.perf_counter() - t0:.1f} s at "
+          f"cap {cpu.cap}, emission block {cpu._path_block}, "
+          f"{cpu.timer.counts['retry']} retries")
+
+
 
 def dist_worker(argv):
     """One process of the distributed path: rank, port, reads, warm-up
@@ -1911,6 +2025,12 @@ def main(argv=()):
     print(f"torch {torch.__version__}  CUDA {torch.version.cuda}  "
           f"python {sys.version.split()[0]}")
 
+    laps = [("", time.perf_counter())]
+
+    def lap(name):
+        """The seconds a section of the run took, printed at the end."""
+        laps.append((name, time.perf_counter()))
+
     t0 = time.perf_counter()
     dp_cuda.build()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
@@ -1936,6 +2056,8 @@ def main(argv=()):
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
         fa = lambda name: os.path.join(tmp, name)
+
+        lap("kernel build, parity, DB")
 
         # ------------------------------------------------ single-end
         reads, src = simulate_reads(G, np.random.default_rng(1), N_READS,
@@ -1968,6 +2090,8 @@ def main(argv=()):
         clf = None
         torch.cuda.empty_cache()
 
+        lap("single-end")
+
         # ------------------------------------------------ paired-end
         m1, m2, src2 = simulate_pairs(G, np.random.default_rng(2), N_PAIRS,
                                       READ_LEN)
@@ -1995,6 +2119,8 @@ def main(argv=()):
                 N_PAIRS // BATCH)
         clf = None
         torch.cuda.empty_cache()
+
+        lap("paired")
 
         # ------------------------------------------------ long reads
         rng = np.random.default_rng(3)
@@ -2076,6 +2202,8 @@ def main(argv=()):
         clf = None
         torch.cuda.empty_cache()
 
+        lap("long-read")
+
         # ------------------------------------------------ host-match flow
         write_fasta(fa("hm.fna"), reads[:N_HOST_MATCH])
         clf = classifier(seq_mode=1, batch_size=BATCH, min_cons_cnt=1,
@@ -2100,6 +2228,8 @@ def main(argv=()):
                          N_HOST_MATCH, card)
         clf = None
         torch.cuda.empty_cache()
+
+        lap("host-match")
 
         # ------------------------------------------------ streamed single-end
         se = runs["single-end"]
@@ -2158,6 +2288,8 @@ def main(argv=()):
         clf = cpu = rs = None
         torch.cuda.empty_cache()
 
+        lap("streamed")
+
         # ------------------------- a streamed read beyond the row cap
         one, g_over = simulate_reads(G, np.random.default_rng(4), 1,
                                      OVER_CAP)
@@ -2191,6 +2323,8 @@ def main(argv=()):
                   f"{peak / 2**30:.3f} GiB"
                   + (f", {up['sweeps']} sweeps, {up['bytes'] / 1e6:.1f} MB "
                      f"uploaded" if up else "") + f"; on {card}")
+
+        lap("over-cap reads")
 
         # ------------------------------------------------ device-assign flow
         for name, mode, files, cpu_files, warm, ref, n, unit, s_ in (
@@ -2244,6 +2378,8 @@ def main(argv=()):
                              card, n // BATCH)
             clf = cpu = None
             torch.cuda.empty_cache()
+
+        lap("device-assign")
 
         # ------------------------------------------------ the (dp, db) mesh
         n_cards = torch.cuda.device_count()
@@ -2331,6 +2467,8 @@ def main(argv=()):
         clf = None
         torch.cuda.empty_cache()
 
+        lap("mesh")
+
         # ------------------------------------------------ distributed
         write_fasta(fa("dist.fna"), reads[:N_DIST])
         with socket.socket() as sk:
@@ -2385,6 +2523,8 @@ def main(argv=()):
               f"process start and setup {time.perf_counter() - t0:.1f} s; "
               f"on {card}")
 
+        lap("distributed")
+
         # ------------------------------------------------ measure_scaling
         from metabuli_work_tpu_torch.parallel.scaling import measure_scaling
 
@@ -2396,6 +2536,8 @@ def main(argv=()):
               f"size ({time.perf_counter() - t0:.1f} s); cells that share a "
               f"card run one after another: the mechanism's cost, not a "
               f"speed-up; on {card}")
+
+        lap("measure_scaling")
 
         # ------ the native reader, reference-format DBs, --em, the CLI
         # (after every earlier path, so those run as they did before)
@@ -2414,6 +2556,8 @@ def main(argv=()):
                          runs["em"]["results"], index.taxonomy, card)
         assert head == [str(v) for v in index.values[:5]], head
         torch.cuda.empty_cache()
+
+        lap("reader, reference-format, em, cli")
 
         # ---- ORF build, updateDB, accession level, filter, the CLI's
         # tools (after every earlier path, so those run as they did)
@@ -2441,6 +2585,8 @@ def main(argv=()):
                  "cli tools"), took, took[1:])))
         torch.cuda.empty_cache()
 
+        lap("orf build to cli tools")
+
         # ---- the narrow and bisection probes, AA-only extraction, read
         # groups, UniRef (after every earlier path and phase)
         took = [time.perf_counter()]
@@ -2462,11 +2608,24 @@ def main(argv=()):
                  "uniref"), took, took[1:])))
         torch.cuda.empty_cache()
 
+        lap("narrow probes to uniref")
+
+        # ---- a many-species DB: every launch the cap > 32 kernel (after
+        # every earlier path and phase)
+        t0 = time.perf_counter()
+        highcap_phase(dp_cuda, lambda ix, device: Classifier.from_memory(
+            ix, ClassifyParams(seq_mode=1, batch_size=BATCH, **short),
+            device=device), fa, runs, card)
+        print(f"phase seconds: {HIGHCAP} {time.perf_counter() - t0:.1f}")
+        torch.cuda.empty_cache()
+
+    lap("high-cap single-end")
+
     # ------------------------------- main-path parity and kernel timings
     # the plain version runs once per long-read shape (seconds a call)
     timed = {name: time_shapes(name, r, dp_cuda, card, max_err,
                                reps=20 if name == "long-read" else 50,
-                               plain_reps=1 if name == "long-read" else 3)
+                               plain_reps=1)
              for name, r in runs.items() if r["first"]}
     n_main = sum(len(t) for t in timed.values())
     print(f"parity main-path: {n_main} captured launch inputs exact, "
@@ -2533,6 +2692,10 @@ def main(argv=()):
                        if dp_cuda.variant(k[0]) == which],
         })
     assert kernels, "no path-DP kernel was launched on any path"
+    lap("main-path parity and timings")
+    print("section seconds: " + ", ".join(
+        f"{n} {t1 - t0:.1f}" for (_, t0), (n, t1) in zip(laps, laps[1:]))
+        + f"; in all {laps[-1][1] - laps[0][1]:.1f}")
 
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

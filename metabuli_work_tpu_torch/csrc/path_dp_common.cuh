@@ -1,6 +1,7 @@
-// Pieces shared by the two path-DP kernels (path_dp.cu, block per lane;
-// path_dp_warp.cu, a warp's lane group per lane): the codon score, the
-// empty-key sentinel and the blocked emission of one finished path.
+// Pieces shared by the two path-DP kernels (path_dp.cu, a warp a lane
+// for cap > 32; path_dp_warp.cu, a warp's lane group a lane for cap <=
+// 32): the codon score, the empty-key sentinel and the blocked emission
+// of one finished path.
 
 #pragma once
 

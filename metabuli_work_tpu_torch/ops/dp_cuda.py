@@ -9,8 +9,12 @@ metabuli_work_tpu/ops/dp_pallas.py::_dp_kernel, chosen by cap alone:
 - "warp" (csrc/path_dp_warp.cu) for cap <= WARP_MAX_CAP: a lane's
   candidates are threads of one warp, several lanes per warp, window
   tiles staged by cp.async, no block barriers;
-- "block" (csrc/path_dp.cu) for larger caps: one block per lane, the
-  ring in shared memory or a global scratch slice.
+- "block" (csrc/path_dp.cu) for larger caps, up to MAX_CAP: one warp a
+  lane (a block is one warp), live candidates compacted, predecessors
+  looked up by species in a hash table of each ring window, tiles staged
+  by cp.async, shared memory sized to the cap; the ring goes to a global
+  scratch slice of each resident block only where it cannot fit (caps of
+  about a thousand and more).
 
 The notes at the top of each source say what bounds it on an H100 and
 how its design answers that.  Each kernel library is compiled by nvcc
@@ -33,8 +37,8 @@ SOURCES = {"block": os.path.join(_CSRC, "path_dp.cu"),
            "warp": os.path.join(_CSRC, "path_dp_warp.cu")}
 _HEADER = os.path.join(_CSRC, "path_dp_common.cuh")
 WARP_MAX_CAP = 32                # a lane's candidates fit one warp
+MAX_CAP = 4096                   # block variant: 12-bit entry indices
 MAX_SHIFT = 8                    # 24-bit DNA codes shift by <= 8 codons
-_SMEM_LIMIT = 64 * 1024          # block variant: ring bytes kept on chip
 
 # kernel launches by path_dp_blocked (all, and per variant), and
 # plain-version runs on CUDA tensors (only comparisons call the plain
@@ -77,16 +81,28 @@ def build():
                 for v, src in SOURCES.items()}
         libs = {v: ctypes.CDLL(f.result()) for v, f in futs.items()}
     P, I = ctypes.c_void_p, ctypes.c_int
+    L = ctypes.c_longlong
     blk = libs["block"]
-    blk.path_dp_block_launch.argtypes = [P] * 9 + [I] * 12 + [P]
+    blk.path_dp_block_launch.argtypes = [P] * 9 + [L] + [I] * 10 + [P]
     blk.path_dp_block_launch.restype = I
-    blk.path_dp_block_smem_bytes.argtypes = [I, I]
-    blk.path_dp_block_smem_bytes.restype = ctypes.c_longlong
+    blk.path_dp_block_scratch_bytes.argtypes = [I, I]
+    blk.path_dp_block_scratch_bytes.restype = L
+    blk.path_dp_block_plan.argtypes = [I, I, ctypes.POINTER(L)]
+    blk.path_dp_block_plan.restype = I
     warp = libs["warp"]
     warp.path_dp_warp_launch.argtypes = [P] * 8 + [I] * 10 + [P]
     warp.path_dp_warp_launch.restype = I
     _LIBS = libs
     return libs
+
+
+def block_plan(cap: int, max_shift: int):
+    """How the block variant lays out a lane at (cap, max_shift): (ring
+    in shared memory, dynamic shared-memory bytes a block, windows a
+    staged tile).  Builds the library."""
+    out = (ctypes.c_longlong * 2)()
+    in_smem = build()["block"].path_dp_block_plan(cap, max_shift, out)
+    return bool(in_smem), int(out[0]), int(out[1])
 
 
 def path_dp_blocked_ref(sp_m, dna, rh, ham, pos, min_cons: int,
@@ -162,7 +178,7 @@ def _launch(which, ins, min_cons, min_cons_euk, max_shift, kmer_format,
                              "int32 tensors of one shape on one device")
     cap, G, W = sp_m.shape
     if cap < 1 or G < 1 or not 1 <= max_shift <= MAX_SHIFT or block_w < 1 \
-            or (which == "warp" and cap > WARP_MAX_CAP):
+            or cap > (WARP_MAX_CAP if which == "warp" else MAX_CAP):
         raise ValueError(f"path_dp_blocked: unsupported shape for the "
                          f"{which} kernel: cap={cap} G={G} "
                          f"max_shift={max_shift} block_w={block_w}")
@@ -185,15 +201,17 @@ def _launch(which, ins, min_cons, min_cons_euk, max_shift, kmer_format,
             err = lib.path_dp_warp_launch(*ptrs, cap, G, W, max_shift,
                                           block_w, *opts, stream)
         else:
-            smem = int(lib.path_dp_block_smem_bytes(cap, max_shift))
-            in_smem = smem <= _SMEM_LIMIT
-            scratch = None if in_smem else torch.empty(
-                G * smem // 4, dtype=torch.int32, device=dev)
-            threads = min(256, max(32, -(-cap // 32) * 32))
+            # a ring a resident block when the ring cannot stay on chip
+            n_scratch = int(lib.path_dp_block_scratch_bytes(cap, max_shift))
+            if n_scratch < 0:
+                raise RuntimeError(f"path_dp block kernel: no plan for "
+                                   f"cap={cap} max_shift={max_shift} "
+                                   f"({n_scratch})")
+            scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev) \
+                if n_scratch else None
             err = lib.path_dp_block_launch(
                 *ptrs, scratch.data_ptr() if scratch is not None else 0,
-                cap, G, W, max_shift, block_w, *opts, int(in_smem), threads,
-                stream)
+                n_scratch, cap, G, W, max_shift, block_w, *opts, stream)
     if err != 0:
         raise RuntimeError(f"path_dp {which} kernel launch failed: "
                            f"CUDA error {err}")

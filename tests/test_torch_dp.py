@@ -12,8 +12,11 @@ import torch
 from metabuli_work_tpu.ops import dp_jax, dp_pallas
 from metabuli_work_tpu_torch.ops import dp_cuda, dp_torch
 
-from torch_dp_cases import (EDGES, GRID, I32, edge_case, flipped_inputs,
-                            overflow_case, random_case, torch_blocked)
+from torch_dp_cases import (EDGES, GRID, HIGH_CAP, I32, edge_case,
+                            flipped_inputs, high_cap_case, overflow_case,
+                            random_case, torch_blocked)
+
+PALLAS_MAX_CAP = 80      # interpret mode: 40 s at cap 128, minutes at 384
 
 
 def _pallas(case, min_cons, min_cons_euk, S, kf, dyn_gap, block_w, compact5):
@@ -51,6 +54,46 @@ def test_blocked_ref_matches_pallas_at_kernel_edges(name, cap, G, W, S, kf,
     assert ref[2] == got[2]
     if name.startswith("overflow"):
         assert got[2] > 0
+    np.testing.assert_array_equal(ref[1], got[1])
+    np.testing.assert_array_equal(ref[0], got[0])
+
+
+def _dp_jax_blocked(case, min_cons, min_cons_euk, S, kf, dyn_gap, block_w):
+    """The JAX package's unfused flow sort_candidates -> path_dp ->
+    pack_paths_blocked (its own tests hold it equal to the Pallas
+    kernel), empty slots 0 in every column as the kernel leaves them."""
+    names = ("sel", "species", "dna", "rh", "ham", "pos")
+    f = dp_jax.sort_candidates({k: jnp.asarray(a) for k, a in
+                                zip(names, case)}, jnp.asarray(case[0]),
+                               jnp.asarray(case[4]), jnp.asarray(case[2]))
+    md = jnp.where((f["species"] >> 30) & 1 != 0, min_cons_euk,
+                   min_cons).astype(jnp.int32)
+    out = dp_jax.path_dp(f["sel"], f["species"], f["dna"], f["rh"], f["ham"],
+                         f["pos"], md, max_shift=S, kmer_format=kf,
+                         dyn_gap=dyn_gap)
+    cols, valid, over = dp_jax.pack_paths_blocked(out, block_w, compact5=True)
+    valid = np.asarray(valid)
+    return np.where(valid[None], np.asarray(cols), 0), valid, int(over)
+
+
+@pytest.mark.parametrize("name,cap,G,W,S,kf,dyn_gap,block_w,density,mode",
+                         HIGH_CAP, ids=[e[0] for e in HIGH_CAP])
+def test_blocked_ref_matches_jax_at_high_caps(name, cap, G, W, S, kf,
+                                              dyn_gap, block_w, density,
+                                              mode):
+    """Caps above 32 as a many-species database gives them, where the
+    block variant branches: against the Pallas kernel in interpret mode
+    up to PALLAS_MAX_CAP, above it against the JAX package's unfused
+    dp_jax flow."""
+    case = high_cap_case(name, cap, G, W, density, dyn_gap, mode)
+    if cap <= PALLAS_MAX_CAP:
+        ref = _pallas(case, 2, 3, S, kf, dyn_gap, block_w, True)
+    else:
+        ref = _dp_jax_blocked(case, 2, 3, S, kf, dyn_gap, block_w)
+    got = torch_blocked(case, 2, 3, S, kf, dyn_gap, block_w, True)
+    assert ref[2] == got[2]
+    assert (got[2] > 0) == name.startswith(("overflow", "cap64"))
+    assert got[1].any() or W == 1
     np.testing.assert_array_equal(ref[1], got[1])
     np.testing.assert_array_equal(ref[0], got[0])
 

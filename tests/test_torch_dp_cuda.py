@@ -1,7 +1,9 @@
 """The path-DP CUDA kernels against their plain torch version on the
 card, bit-exact, over the JAX parity grid, the block-overflow case and
-the shapes where the kernels branch and the long rows and mate pairs of
---seq-mode 3 and 2; each case must launch the variant its cap selects.
+the shapes where the kernels branch, the caps above 32 of a
+many-species database (up to the global-scratch ring) and the long rows
+and mate pairs of --seq-mode 3 and 2; each case must launch the variant
+its cap selects.
 No JAX import: on a machine with a card and without JAX run it as
 
     python -m pytest tests/test_torch_dp_cuda.py -m cuda --noconftest
@@ -13,8 +15,9 @@ import torch
 
 from metabuli_work_tpu_torch.ops import dp_cuda
 
-from torch_dp_cases import (EDGES, GRID, LONG_W, edge_case, overflow_case,
-                            random_case, torch_blocked)
+from torch_dp_cases import (EDGES, GRID, HIGH_CAP, LONG_W, edge_case,
+                            high_cap_case, overflow_case, random_case,
+                            torch_blocked)
 
 
 @pytest.mark.cuda
@@ -32,6 +35,14 @@ def test_cuda_kernel_matches_plain_version():
     for name, cap, G, W, S, kf, dg, bw, density, c5s in LONG_W:
         cases.append((edge_case(name, cap, G, W, density, dg), S, kf, dg, bw,
                       c5s))
+    for name, cap, G, W, S, kf, dg, bw, density, mode in HIGH_CAP:
+        cases.append((high_cap_case(name, cap, G, W, density, dg, mode), S,
+                      kf, dg, bw, both))
+    # the block variant's branches: more than 48 KB of shared memory at
+    # cap 384, the ring in global scratch at cap 1100
+    in_smem, smem, _ = dp_cuda.block_plan(384, 3)
+    assert in_smem and smem > 48 * 1024
+    assert not dp_cuda.block_plan(1100, 3)[0]
     for case, S, kf, dg, bw, c5s in cases:
         cap = case[0].shape[0]
         for compact5 in c5s:

@@ -41,6 +41,25 @@ LONG_W = [
     ("mate1-W36", 8, 1536, 36, 3, 2, True, 16, 0.5, (True,)),
     ("mate2-W33", 8, 1536, 33, 3, 2, True, 16, 0.5, (True,)),
 ]
+# caps above 32, as a many-species database gives them: one candidate a
+# species in most windows (mode "species") or rows copied pairwise, so
+# two candidates of one species tie on key and score ("ties").  The
+# block variant stages 8 windows a tile at cap 48 and 4 at cap 80, so W
+# 13 and 10 end inside a tile; at cap 80 and density 0.9 a lane's live
+# count passes 64; cap 384 takes more than 48 KB of shared memory and
+# cap 1100 the global-scratch ring.  Fields as EDGES plus the mode.
+HIGH_CAP = [
+    ("cap33-S3", 33, 12, 9, 3, 2, True, 32, 0.8, "species"),
+    ("cap48-W13", 48, 12, 13, 3, 2, True, 64, 0.8, "species"),
+    ("cap64-S1", 64, 12, 9, 1, 2, False, 64, 0.9, "species"),
+    ("cap128-kf1", 128, 6, 7, 2, 1, False, 256, 0.8, "species"),
+    ("live72-cap80-W10", 80, 6, 10, 3, 2, True, 128, 0.9, "species"),
+    ("ties-cap40", 40, 12, 9, 3, 2, True, 64, 0.8, "ties"),
+    ("overflow-cap48", 48, 12, 12, 3, 2, True, 4, 0.8, "species"),
+    ("W1-cap48", 48, 6, 1, 3, 2, True, 8, 0.8, "species"),
+    ("cap384", 384, 6, 6, 3, 2, True, 512, 0.8, "species"),
+    ("global-cap1100", 1100, 4, 4, 3, 2, True, 1024, 0.8, "species"),
+]
 
 
 def random_case(rng, cap, G, W, n_species=5, density=0.4, dyn_gap=False):
@@ -75,6 +94,36 @@ def random_case(rng, cap, G, W, n_species=5, density=0.4, dyn_gap=False):
             (np.arange(W, dtype=I32) * 3)[None, None, :], (cap, G, W)
         ).astype(I32).copy()
     return sel, species, dna, rh, ham, pos
+
+
+def many_species_case(rng, cap, G, W, density=0.8, dyn_gap=False,
+                      ties=False):
+    """random_case's chains with the species of a many-species database:
+    each lane draws cap of cap + cap // 8 species, a candidate row keeps
+    its species over the windows and 1 in 10 takes another of them
+    (then two rows of one species share a window); the euk flag is a
+    property of the species.  ties: every odd row copies the row before
+    it, so two candidates of one species tie on key and score."""
+    sel, _, dna, rh, ham, pos = random_case(rng, cap, G, W, n_species=1,
+                                            density=density, dyn_gap=dyn_gap)
+    n_sp = cap + cap // 8
+    lane_sp = np.stack([rng.permutation(n_sp)[:cap] for _ in range(G)], 1)
+    species = np.repeat(lane_sp[:, :, None] + 1, W, 2)
+    swap = rng.random((cap, G, W)) < 0.1
+    species = np.where(swap, rng.integers(1, n_sp + 1, size=(cap, G, W)),
+                       species)
+    species = species | ((species % 4 == 0).astype(np.int64) << 30)
+    if ties:
+        for a in (sel, species, dna, rh, ham):
+            a[1::2] = a[0:cap - cap % 2:2]
+    return sel, species.astype(I32), dna, rh, ham, pos
+
+
+def high_cap_case(name, cap, G, W, density, dyn_gap, mode):
+    """The HIGH_CAP entry's inputs."""
+    rng = np.random.default_rng(len(name) + cap + G + W)
+    return many_species_case(rng, cap, G, W, density, dyn_gap,
+                             ties=mode == "ties")
 
 
 def edge_case(name, cap, G, W, density, dyn_gap):
