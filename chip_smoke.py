@@ -179,6 +179,18 @@
    high-cap phase's input the time the earlier cap > 32 kernel took),
    and launches x ms/launch beside the single-end run's wall time.
 
+Host work that only fills a cache a later phase reads runs in spawned
+preparation processes (CPU only) while the card works: the smoke DB and
+its wide layout and host shards during the kernel build and the parity
+cases (the first path waits for all of them); after measure_scaling,
+the ORF DB, the updated DB and its layout, the six narrow, bisection
+and chain-3 layouts, the common-k-mer DB and the high-cap DB, beside
+the reader-to-cli phases.  A phase waits for
+what it reads and prints the seconds the preparation took.  The CPU runs
+of the long-read and the high-cap CPU checks run the same way, while the
+card runs the paths after them; each is held against the card's results
+once it is done.
+
 With --profile every path is driven once more under torch.profiler (CPU
 + CUDA activities) after its checks: the sum of all device kernel and
 copy times ("busy"; the path runs on one stream, so the sum is the busy
@@ -200,6 +212,7 @@ records, its launch counts and its parity checks to OUT.
 """
 
 import json
+import multiprocessing
 import os
 import shutil
 import socket
@@ -240,6 +253,7 @@ ORF_MIN_RIGHT = 0.9              # its reads at source species or genus
 NINTH_LEN = 4_000_000            # updateDB / accession level: one more genome
 N_NINTH = 2048                   # its reads
 SHORT = dict(min_score=0.15, min_sp_score=0.5)   # short-read thresholds
+RUN_LIMIT_S = 1200               # the whole command's time limit
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate
 ALU_OPS_PER_S = 67e12            # H100 SXM 32-bit non-tensor peak
 QUEUE_CYCLES = 50_000_000        # ~25 ms of device spin while the host
@@ -385,6 +399,11 @@ def smoke_taxonomy(Taxonomy):
                     rank_pool, name_pool, np.array(int2orig))
 
 
+def smoke_db_path():
+    return os.path.join(os.path.expanduser("~/.cache"),
+                        f"mwt_torch_smoke_db_{N_GENOMES}_{GENOME_LEN}.npz")
+
+
 def build_or_load_db():
     """Syncmer DB of N_GENOMES genomes (2 random bases, 3.5% mutations
     per species), cached under ~/.cache by config key."""
@@ -393,8 +412,7 @@ def build_or_load_db():
     from metabuli_work_tpu_torch.taxonomy import Taxonomy
 
     tax = smoke_taxonomy(Taxonomy)
-    cache = os.path.join(os.path.expanduser("~/.cache"),
-                         f"mwt_torch_smoke_db_{N_GENOMES}_{GENOME_LEN}.npz")
+    cache = smoke_db_path()
     meta = {"kmer_format": 2, "syncmer": True, "smer_len": 5,
             "reduced_aa": 0, "mask_mode": 0, "mask_prob": 0.9,
             "skip_redundancy": 1}
@@ -739,7 +757,12 @@ def check_path(name, r, n_reads, src, dp_cuda, card, unit="reads",
 
 
 def cpu_check(name, gpu_results, cpu_results):
-    gpu_res, cpu_res = tuples(gpu_results), tuples(cpu_results)
+    cpu_check_tuples(name, gpu_results, tuples(cpu_results))
+
+
+def cpu_check_tuples(name, gpu_results, cpu_res):
+    """cpu_check against the CPU run's tuples() (lists, from JSON)."""
+    gpu_res, cpu_res = tuples(gpu_results), [tuple(t) for t in cpu_res]
     n_same = sum(a == b for a, b in zip(gpu_res, cpu_res))
     print(f"{name} CPU check: {n_same}/{len(cpu_res)} reads identical to "
           f"the CPU run")
@@ -1163,17 +1186,19 @@ def expected_ids(tax, species_orig, genus_orig):
     return to(species_orig), to(genus_orig)
 
 
-def orf_phase(dp_cuda, classifier_at, fa, runs, n_main, card):
-    """The ORF DB (built or cached), then N_READS single-end reads of its
-    genomes through Classifier(db, device="cuda"), 256 held against the
-    CPU run."""
+def orf_phase(dp_cuda, classifier_at, fa, runs, n_main, card, prepped):
+    """The ORF DB (`prepped`: prep_orf_db's record; it built the DB or
+    found it cached), then N_READS single-end reads of its genomes
+    through Classifier(db, device="cuda"), 256 held against the CPU
+    run."""
     name = "orf build"
-    db, genomes, hit, info = build_or_load_orf_db(fa)
+    db, genomes, _, info = build_or_load_orf_db(fa)
     print(f"{name}: gene predictor {info['predictor']}")
     print(f"{name}: {ORF_GENOMES} gene-structured genomes x {GENOME_LEN} bp "
           f"(genes {100 * info['coding']:.2f}% of the bases): "
           f"build_database(orf_prediction=True, gene_predictor='auto') "
-          f"{info['build_s']:.1f} s{' (cached)' if hit else ''}, "
+          f"{info['build_s']:.1f} s"
+          f"{' (cached)' if prepped['hit'] else ' in a preparation process'}, "
           f"{info['kmers']} k-mers (the 6-frame smoke DB of random genomes: "
           f"{n_main}); {100 * info['covered']:.2f}% of genome bases inside "
           f"predicted blocks")
@@ -1204,19 +1229,19 @@ def orf_phase(dp_cuda, classifier_at, fa, runs, n_main, card):
 NINTH_TAXA = ((103, 1, "genus", "G3"), (1008, 103, "species", "Species8"))
 
 
-def update_phase(dp_cuda, index, classifier_at, fa, reads, runs, card):
-    """The smoke index saved as a native DB; update_database adds a ninth
-    genome (NINTH_LEN of random bases) under a new genus and species
-    grafted by a new-taxa TSV; the single-end reads plus N_NINTH reads of
-    the ninth genome classified on the updated DB on the card.  Returns
-    the paths and reads the later phases use."""
+def ninth_genome():
+    return ACGT[np.random.default_rng(20).integers(0, 4, size=NINTH_LEN)]
+
+
+def make_updated_db(fa, index):
+    """The smoke index saved as a native DB, then update_database adds
+    the ninth genome (NINTH_LEN of random bases) under a new genus and
+    species grafted by a new-taxa TSV.  Returns the updated DB's
+    directory, its entries and the seconds of the save and the update."""
     from metabuli_work_tpu_torch.index.format import save_index
     from metabuli_work_tpu_torch.index.update import update_database
 
-    name = "updateDB"
-    rng = np.random.default_rng(20)
-    ninth = ACGT[rng.integers(0, 4, size=NINTH_LEN)]
-    nr, nstart = simulate_reads_at(ninth, np.random.default_rng(21), N_NINTH)
+    ninth = ninth_genome()
     old, new = fa("main_db"), fa("updated_db")
     t0 = time.perf_counter()
     save_index(old, index)
@@ -1233,11 +1258,26 @@ def update_phase(dp_cuda, index, classifier_at, fa, reads, runs, card):
     t0 = time.perf_counter()
     upd = update_database(old, new, fa("ninth.txt"), fa("ninth.map"),
                           new_taxa_path=fa("new_taxa.tsv"))
-    t_upd = time.perf_counter() - t0
+    return {"db": new, "entries": int(upd.size), "save_s": t_save,
+            "update_s": time.perf_counter() - t0}
+
+
+def update_phase(dp_cuda, index, classifier_at, fa, reads, runs, card,
+                 made):
+    """The single-end reads plus N_NINTH reads of the ninth genome
+    classified on the updated DB (`made`: prep_updated_db's record, which
+    made it and packed its layout) on the card.  Returns the paths and
+    reads the later phases use."""
+    name = "updateDB"
+    ninth = ninth_genome()
+    nr, nstart = simulate_reads_at(ninth, np.random.default_rng(21), N_NINTH)
+    new = made["db"]
     print(f"{name}: update_database added a {NINTH_LEN}-bp genome under a "
           f"new genus and species (--new-taxa) to the {index.size}-entry "
-          f"smoke DB in {t_upd:.1f} s ({upd.size} entries; saving the old "
-          f"DB took {t_save:.1f} s); on {card}")
+          f"smoke DB in {made['update_s']:.1f} s ({made['entries']} "
+          f"entries; saving the old DB took {made['save_s']:.1f} s; both, "
+          f"and packing the updated DB's layout in {made['pack_s']:.1f} s, "
+          f"in a preparation process); on {card}")
     mixed = np.concatenate([reads, nr])
     write_fasta(fa("mixed.fna"), mixed)
     half = N_CPU_CHECK // 2
@@ -1262,8 +1302,8 @@ def update_phase(dp_cuda, index, classifier_at, fa, reads, runs, card):
           f"{100 * on_ninth.mean():.2f}% of the ninth genome's reads at its "
           f"species; {changed} of the {N_READS} single-end reads differ "
           f"from the resident run's (an observation); "
-          f"{len(res) / r['dt']:.1f} reads/s; classifier setup (pack + "
-          f"upload) {setup:.1f} s; peak device memory "
+          f"{len(res) / r['dt']:.1f} reads/s; classifier setup (cached "
+          f"layout + upload) {setup:.1f} s; peak device memory "
           f"{(r['peak'] - r['base']) / 2**30:.3f} GiB above the run's "
           f"start; read with the {r['reader']} reader; on {card}")
     check_launches(name, r, dp_cuda)
@@ -1521,7 +1561,7 @@ def layout_bytes(clf):
 
 
 def narrow_phases(dp_cuda, classifier, fa, index, ref, src, runs, mesh,
-                  card):
+                  card, packed):
     """The first N_NARROW single-end reads through each probe layout
     (NARROW: the probe knobs as the environment gives them when the
     classifier is made), then the narrow layout streamed (hbm_budget_gb
@@ -1529,7 +1569,9 @@ def narrow_phases(dp_cuda, classifier, fa, index, ref, src, runs, mesh,
     shards): every read equal to the wide resident run's (tax_cnt and
     top_species included); the layout's device bytes against the wide
     one's, the aligned padding factor, launches, stage table and
-    reads/s; then the resident layouts' reads/s in turns."""
+    reads/s; then the resident layouts' reads/s in turns.  `packed`:
+    the seconds a preparation process took to pack each layout (the wide
+    one excepted: the single-end path's)."""
     wide, kept = None, {}
     for name, env in NARROW:
         t0 = time.perf_counter()
@@ -1559,7 +1601,10 @@ def narrow_phases(dp_cuda, classifier, fa, index, ref, src, runs, mesh,
               f"{wide[0] / 1e6:.1f} MB), tables {tables / 1e6:.1f} MB (wide "
               f"{wide[1] / 1e6:.1f} MB), in all {(rows + tables) / 1e6:.1f} "
               f"MB against {(wide[0] + wide[1]) / 1e6:.1f} MB; setup "
-              f"{setup:.1f} s; {N_NARROW / r['dt']:.1f} reads/s against the "
+              f"{setup:.1f} s"
+              + (f" (layout packed in {packed[name]:.1f} s in a preparation "
+                 f"process)" if name in packed else "")
+              + f"; {N_NARROW / r['dt']:.1f} reads/s against the "
               f"wide run's {N_NARROW / wide[2]:.1f}; on {card}")
         stage_table(name, clf, card)
         kept[name] = clf
@@ -1616,7 +1661,9 @@ def narrow_phases(dp_cuda, classifier, fa, index, ref, src, runs, mesh,
             extra = (f"; {up1['sweeps'] - up0['sweeps']} sweeps, "
                      f"{(up1['bytes'] - up0['bytes']) / 1e6:.1f} MB uploaded")
         print(f"{name}: {shape}, hash chain {clf.hash_chain}; setup "
-              f"{setup:.1f} s; {N_NARROW / r['dt']:.1f} reads/s against the "
+              f"{setup:.1f} s (layout packed in {packed[name]:.1f} s in a "
+              f"preparation process); {N_NARROW / r['dt']:.1f} reads/s "
+              f"against the "
               f"wide resident run's {N_NARROW / wide[2]:.1f}{extra}; on "
               f"{card}")
         stage_table(name, clf, card)
@@ -1659,37 +1706,30 @@ def aa_extract_phase(reads, card):
               f"the host scanner; {ms:.3f} ms a call on {card}")
 
 
-def readgroup_phase(fa, genomes, src, src2, se_results, card):
-    """build_common_kmer_db over the smoke genomes (six frames, the
-    >= 2-species filter applied); run_grouping of the single-end reads
-    and of the pairs (native union-find); apply_groups on the single-end
-    run's classifications.  Fails if a group holds reads of both genera
+def readgroup_phase(fa, src, src2, se_results, card, common):
+    """run_grouping of the single-end reads and of the pairs (native
+    union-find) against the common-k-mer DB of the smoke genomes
+    (`common`: prep_common_db's record; six frames, the >= 2-species
+    filter applied); apply_groups on the single-end run's
+    classifications.  Fails if a group holds reads of both genera
     (random sequence apart: no k-mer should join them)."""
-    from metabuli_work_tpu_torch.index.common import build_common_kmer_db
     from metabuli_work_tpu_torch.readgroup.apply import apply_groups
     from metabuli_work_tpu_torch.readgroup.grouping import (GroupingParams,
                                                             run_grouping)
     from metabuli_work_tpu_torch.taxonomy import Taxonomy
 
     tax = smoke_taxonomy(Taxonomy)
-    seqs = [(f"G{i}", np.frombuffer(g.encode(), np.uint8))
-            for i, g in enumerate(genomes)]
-    lst, amap, taxdump = write_build_inputs(
-        fa, "rg", seqs, [1000 + i for i in range(len(genomes))], tax)
-    t0 = time.perf_counter()
-    common = build_common_kmer_db(fa("common"), lst, amap, taxdump,
-                                  orf_prediction=False,
-                                  common_filter="always")
-    print(f"read groups: common-k-mer DB of {len(common)} AA 12-mers shared "
-          f"by >= 2 species over {len(genomes)} genomes in "
-          f"{time.perf_counter() - t0:.1f} s")
+    taxdump = common["taxdump"]
+    print(f"read groups: common-k-mer DB of {common['kmers']} AA 12-mers "
+          f"shared by >= 2 species over {common['genomes']} genomes in "
+          f"{common['seconds']:.1f} s (in a preparation process)")
     groups_of = {}
     for name, files, s_, mode in (
             ("single-end", (fa("reads.fna"), None), src, 1),
             ("paired", (fa("pairs_1.fna"), fa("pairs_2.fna")), src2, 2)):
         out = fa(f"groups_{mode}")
         t0 = time.perf_counter()
-        qg = run_grouping(files[0], fa("common"), out,
+        qg = run_grouping(files[0], common["dir"], out,
                           GroupingParams(seq_mode=mode), files[1])[1:]
         dt = time.perf_counter() - t0
         grouped = qg > 0
@@ -1896,29 +1936,35 @@ def build_or_load_highcap_db():
     return index, genomes, False
 
 
-def highcap_phase(dp_cuda, classifier_of, fa, runs, card):
-    """HC_READS single-end reads of the many-species DB through
+def highcap_phase(dp_cuda, classifier_of, fa, runs, card, prepped, prep,
+                  cpu_reads):
+    """HC_READS single-end reads of the many-species DB (`prepped`:
+    prep_highcap_db's record, which built it or found it cached) through
     Classifier(device="cuda"): the setup cap (the 99.9% AA-run quantile)
     must exceed 32, so every launch is the cap > 32 kernel; the first
-    HC_CPU reads equal to the CPU run's.  The kernel's times, bounds and
+    HC_CPU reads (written to `cpu_reads`) go to a CPU run in `prep`, and
+    it returns the card's results of them for highcap_cpu_check.  The kernel's times, bounds and
     parity on the captured inputs come with every path's at the end."""
     na, nb = HC_SPECIES
     t0 = time.perf_counter()
-    index, genomes, hit = build_or_load_highcap_db()
+    index, genomes, _ = build_or_load_highcap_db()
     t_db = time.perf_counter() - t0
     reads, src = simulate_reads(genome_matrix(genomes),
                                 np.random.default_rng(31), HC_READS, READ_LEN)
     write_fasta(fa("hc_reads.fna"), reads)
     write_fasta(fa("hc_warm.fna"), reads[:BATCH])
-    write_fasta(fa("hc_cpu.fna"), reads[:HC_CPU])
+    write_fasta(cpu_reads, reads[:HC_CPU])
     t0 = time.perf_counter()
     clf = classifier_of(index, "cuda")
     setup = time.perf_counter() - t0
     cap0 = clf.cap
     print(f"{HIGHCAP}: DB of {na} + {nb} species in 2 genera x {HC_LEN} bp "
           f"({100 * HC_DIV:g}% per species from its genus's ancestor), "
-          f"{index.size} entries ({'cache hit' if hit else 'built'}, "
-          f"{t_db:.1f} s); AA runs: 99.9% quantile {index.cap_aa_run()}, "
+          f"{index.size} entries ("
+          + ("cached" if prepped["hit"] else
+             f"built in {prepped['seconds']:.1f} s in a preparation process")
+          + f"; loaded in {t_db:.1f} s); AA runs: 99.9% quantile "
+          f"{index.cap_aa_run()}, "
           f"longest {index.max_aa_run()}; classifier setup {setup:.1f} s, "
           f"setup cap {cap0}; on {card}")
     assert cap0 > dp_cuda.WARP_MAX_CAP, \
@@ -1937,19 +1983,196 @@ def highcap_phase(dp_cuda, classifier_of, fa, runs, card):
     stage_table(HIGHCAP, clf, card)
     # the CPU run starts from the knobs the card's retry ladder settled
     # at, so it takes one dispatch a batch (its plain DP at cap 84 is
-    # minutes a climb); the long-read CPU check climbs the ladder itself
-    cpu = classifier_of(index, "cpu")
-    for knob in ("cap", "_path_block", "_path_width", "_win_frac"):
-        setattr(cpu, knob, getattr(clf, knob))
-    clf = None
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    cpu_check(HIGHCAP, r["results"][:HC_CPU],
-              cpu.classify_file(fa("hc_cpu.fna")))
-    print(f"{HIGHCAP} CPU check took {time.perf_counter() - t0:.1f} s at "
-          f"cap {cpu.cap}, emission block {cpu._path_block}, "
-          f"{cpu.timer.counts['retry']} retries")
+    # minutes a climb; the long-read CPU check climbs the ladder itself),
+    # in a preparation process while the card runs the timings
+    prep.start((f"{HIGHCAP} cpu", prep_cpu_classify, (
+        "highcap", cpu_reads, dict(seq_mode=1, batch_size=BATCH, **SHORT),
+        {k: getattr(clf, k)
+         for k in ("cap", "_path_block", "_path_width", "_win_frac")}, 4)))
+    return r["results"][:HC_CPU]
 
+
+def highcap_cpu_check(prep, gpu_results):
+    """The high-cap phase's CPU check, once its CPU run is done."""
+    got = prep.result(f"{HIGHCAP} cpu")
+    cpu_check_tuples(HIGHCAP, gpu_results, got["tuples"])
+    print(f"{HIGHCAP} CPU check took {got['seconds']:.1f} s in a preparation "
+          f"process (4 threads) while the card ran the timings, at cap "
+          f"{got['cap']}, emission block {got['path_block']}, "
+          f"{got['retries']} retries")
+
+
+
+# ------------------------------------------------ host preparation
+# Builds and layout packing are host work that only fill caches (the
+# ~/.cache DBs, the packed-layout cache of index/packing.py) which a
+# later phase reads.  They run in spawned processes while the card works
+# on other phases; a phase waits for what it reads, and prints how long
+# the preparation took where it ran.
+
+
+class Prep:
+    """Preparation processes.  start(tasks) runs (name, function, args)
+    tasks one after another in one new process; each finished task
+    leaves {"seconds": ..., **what it returned} for result(name)."""
+
+    def __init__(self, tmp):
+        self._ctx = multiprocessing.get_context("spawn")
+        self._tmp = tmp
+        self._procs = []
+
+    def _out(self, name):
+        return os.path.join(self._tmp, "prep_" + name.replace(" ", "_")
+                            + ".json")
+
+    def start(self, *tasks):
+        p = self._ctx.Process(target=_prep_run,
+                              args=([(n, f, a, self._out(n))
+                                     for n, f, a in tasks],))
+        p.start()
+        self._procs.append((p, [t[0] for t in tasks]))
+
+    def result(self, name, timeout=900):
+        """The task's record once it is done; raises if its process
+        ended without it."""
+        out = self._out(name)
+        proc = next(p for p, names in self._procs if name in names)
+        t0 = time.perf_counter()
+        while not os.path.exists(out):
+            if not proc.is_alive() and not os.path.exists(out):
+                raise AssertionError(f"preparation process {proc.pid} ended "
+                                     f"(exit code {proc.exitcode}) before "
+                                     f"{name}")
+            if time.perf_counter() - t0 > timeout:
+                raise TimeoutError(f"preparation {name}: over {timeout} s")
+            time.sleep(0.2)
+        with open(out) as f:
+            info = json.load(f)
+        info["waited"] = time.perf_counter() - t0
+        return info
+
+    def close(self, check=True):
+        """Joins every process (killing it after a failure elsewhere);
+        with check, each must have ended with exit code 0."""
+        for p, names in self._procs:
+            p.join(timeout=900 if check else 0)
+            if p.is_alive():
+                p.kill()
+                p.join()
+            if check:
+                assert p.exitcode == 0, \
+                    f"preparation process of {names}: exit code {p.exitcode}"
+        self._procs = []
+
+
+def _prep_run(tasks):
+    """Body of a preparation process (CPU only, one torch thread)."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""     # never a card context
+    torch.set_num_threads(1)
+    for name, fn, args, out in tasks:
+        t0 = time.perf_counter()
+        info = fn(*args) or {}
+        info["seconds"] = time.perf_counter() - t0
+        with open(out + ".tmp", "w") as f:
+            json.dump(info, f)
+        os.replace(out + ".tmp", out)
+
+
+def prep_smoke_db():
+    index, _, hit = build_or_load_db()
+    return {"hit": hit}
+
+
+def prep_layouts(layouts):
+    """Packs the index layouts of classifiers made as the phases make
+    them (label, probe knobs, ClassifyParams extras, on a 2 x 2 mesh),
+    on the CPU: the packing is the same on every device, so the card's
+    classifiers then map the cached layouts.  Waits for the smoke DB."""
+    from metabuli_work_tpu_torch.classify.pipeline import (Classifier,
+                                                           ClassifyParams)
+    from metabuli_work_tpu_torch.parallel.sharding import make_mesh
+
+    while not os.path.exists(smoke_db_path()):
+        time.sleep(0.5)
+    index, _, _ = build_or_load_db()
+    took = {}
+    for label, env, kw, on_mesh in layouts:
+        t0 = time.perf_counter()
+        with mock.patch.dict(os.environ, env):
+            Classifier.from_memory(
+                index, ClassifyParams(seq_mode=1, batch_size=BATCH, **SHORT,
+                                      **kw), device="cpu",
+                mesh=make_mesh(devices=["cpu"] * 4) if on_mesh else None)
+        took[label] = time.perf_counter() - t0
+    return {"layouts": took}
+
+
+def prep_orf_db(tmp):
+    _, _, hit, info = build_or_load_orf_db(
+        lambda name: os.path.join(tmp, name))
+    return {"hit": hit, **info}
+
+
+def prep_updated_db(tmp):
+    """update_phase's database (the smoke index plus the ninth genome)
+    and its wide layout, packed on the CPU."""
+    from metabuli_work_tpu_torch.classify.pipeline import (Classifier,
+                                                           ClassifyParams)
+
+    index, _, _ = build_or_load_db()
+    info = make_updated_db(lambda name: os.path.join(tmp, name), index)
+    t0 = time.perf_counter()
+    Classifier(info["db"], ClassifyParams(seq_mode=1, batch_size=BATCH,
+                                          **SHORT), device="cpu")
+    return {**info, "pack_s": time.perf_counter() - t0}
+
+
+def prep_common_db(tmp):
+    """readgroup_phase's common-k-mer DB of the smoke genomes."""
+    from metabuli_work_tpu_torch.index.common import build_common_kmer_db
+    from metabuli_work_tpu_torch.taxonomy import Taxonomy
+
+    fa = lambda name: os.path.join(tmp, name)
+    _, genomes, _ = build_or_load_db()
+    seqs = [(f"G{i}", np.frombuffer(g.encode(), np.uint8))
+            for i, g in enumerate(genomes)]
+    lst, amap, taxdump = write_build_inputs(
+        fa, "rg", seqs, [1000 + i for i in range(len(genomes))],
+        smoke_taxonomy(Taxonomy))
+    common = build_common_kmer_db(fa("common"), lst, amap, taxdump,
+                                  orf_prediction=False,
+                                  common_filter="always")
+    return {"dir": fa("common"), "kmers": len(common),
+            "genomes": len(genomes), "taxdump": taxdump}
+
+
+def prep_cpu_classify(db, reads, params, knobs, threads):
+    """The CPU run of a CPU check: `reads` through Classifier(device=
+    "cpu") on the smoke DB ("smoke") or the many-species DB ("highcap"),
+    made with ClassifyParams(**params), then given `knobs` (attributes
+    the card's retry ladder settled at), on `threads` torch threads.
+    Returns the per-read (is_classified, classification, score), its
+    retries and the knobs it ended at."""
+    from metabuli_work_tpu_torch.classify.pipeline import (Classifier,
+                                                           ClassifyParams)
+
+    torch.set_num_threads(threads)
+    load = build_or_load_db if db == "smoke" else build_or_load_highcap_db
+    cpu = Classifier.from_memory(load()[0], ClassifyParams(**params),
+                                 device="cpu")
+    for k, v in knobs.items():
+        setattr(cpu, k, v)
+    res = cpu.classify_file(reads)
+    return {"tuples": [(bool(q.result.is_classified),
+                        int(q.result.classification), float(q.result.score))
+                       for q in res],
+            "retries": cpu.timer.counts["retry"], "cap": cpu.cap,
+            "path_block": cpu._path_block}
+
+
+def prep_highcap_db():
+    index, _, hit = build_or_load_highcap_db()
+    return {"hit": hit, "entries": int(index.size)}
 
 
 def dist_worker(argv):
@@ -2014,6 +2237,18 @@ def main(argv=()):
         return 1
     if "--dist-worker" in argv:
         return dist_worker(argv[argv.index("--dist-worker") + 1:])
+    prep_dir = tempfile.mkdtemp(prefix="mwt_smoke_prep_")
+    prep = Prep(prep_dir)
+    try:
+        return smoke(prep, prep_dir, profiled, seed)
+    finally:
+        prep.close(check=False)
+        shutil.rmtree(prep_dir, ignore_errors=True)
+
+
+def smoke(prep, prep_dir, profiled, seed):
+    """The run the module docstring describes; `prep` runs the host
+    preparation (in processes that write under prep_dir)."""
     from metabuli_work_tpu_torch.classify.pipeline import (Classifier,
                                                            ClassifyParams)
     from metabuli_work_tpu_torch.ops import dp_cuda
@@ -2031,6 +2266,16 @@ def main(argv=()):
         """The seconds a section of the run took, printed at the end."""
         laps.append((name, time.perf_counter()))
 
+    # the smoke DB and the first paths' layouts (resident wide rows, the
+    # streamed path's 4 host shards, the mesh's 2) are made while the
+    # kernels build and the parity cases run, all before the first path
+    prep.start(("smoke db", prep_smoke_db, ()),
+               ("wide layout", prep_layouts,
+                ([("wide", {}, {}, False)],)))
+    prep.start(("4 shards", prep_layouts,
+                ([("4 shards", {}, {"hbm_budget_gb": STREAM_GB}, False)],)))
+    prep.start(("2 shards", prep_layouts, ([("2 shards", {}, {}, True)],)))
+
     t0 = time.perf_counter()
     dp_cuda.build()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
@@ -2040,10 +2285,13 @@ def main(argv=()):
     print(f"parity: {n_cases} cases exact, max_abs_err {max_err} "
           f"({time.perf_counter() - t0:.1f} s)")
 
+    made = prep.result("smoke db")
     t0 = time.perf_counter()
-    index, genomes, hit = build_or_load_db()
+    index, genomes, _ = build_or_load_db()
     print(f"DB: {index.size} metamers, {N_GENOMES} genomes x {GENOME_LEN} bp "
-          f"({'cache hit' if hit else 'built'}, "
+          f"({'cached' if made['hit'] else 'built'} in "
+          f"{made['seconds']:.1f} s in a preparation process while the "
+          f"kernels built; waited {made['waited']:.1f} s for it; loaded in "
           f"{time.perf_counter() - t0:.1f} s)")
     G = genome_matrix(genomes)
     short = SHORT
@@ -2062,10 +2310,16 @@ def main(argv=()):
         # ------------------------------------------------ single-end
         reads, src = simulate_reads(G, np.random.default_rng(1), N_READS,
                                     READ_LEN)
+        packed = prep.result("wide layout")
+        shards = {n: prep.result(n)["layouts"][n]
+                  for n in ("4 shards", "2 shards")}
         t0 = time.perf_counter()
         clf = classifier(seq_mode=1, batch_size=BATCH, **short)
-        print(f"classifier setup (pack + upload): "
-              f"{time.perf_counter() - t0:.1f} s, hash chain "
+        print(f"classifier setup (cached layout + upload): "
+              f"{time.perf_counter() - t0:.1f} s (the layout packed in "
+              f"{packed['layouts']['wide']:.1f} s in a preparation process; "
+              f"waited {packed['waited']:.1f} s for it and the host "
+              f"shards), hash chain "
               f"{clf.hash_chain}, cap {clf.cap}, device memory "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
         write_fasta(fa("reads.fna"), reads)
@@ -2183,17 +2437,17 @@ def main(argv=()):
               f"batch, {retries} in the timed run")
         assert warm_retries >= 1 and retries >= 1, \
             "long-read: the overflow-retry ladder never ran on the card"
+        # The CPU run goes on in a preparation process (one thread) while
+        # the card runs the next paths; it is held against the card's
+        # results after the distributed path.
         sub = [0, 1, extra[MID_LONG[0]], extra[VERY_LONG]]
-        write_fasta(fa("long_cpu.fna"), [long_reads[i] for i in sub])
-        cpu = classifier("cpu", batch_size=len(sub), **long_kw)
-        t0 = time.perf_counter()
-        cpu_check("long-read", [r["results"][i] for i in sub],
-                  cpu.classify_file(fa("long_cpu.fna")))
-        print(f"long-read CPU check took {time.perf_counter() - t0:.1f} s: "
-              f"{cpu.timer.counts['retry']} retries from the default knobs, "
-              f"emission block {cpu._path_block} (card "
-              f"{clf._path_block}), cap {cpu.cap} (card {clf.cap})")
-        assert cpu.timer.counts["retry"] >= 1
+        long_cpu = os.path.join(prep_dir, "long_cpu.fna")
+        write_fasta(long_cpu, [long_reads[i] for i in sub])
+        prep.start(("long-read cpu", prep_cpu_classify,
+                    ("smoke", long_cpu, dict(batch_size=len(sub), **long_kw),
+                     {}, 1)))
+        long_check = ([r["results"][i] for i in sub], clf._path_block,
+                      clf.cap)
         if profiled:
             write_fasta(fa("long10k.fna"), lr)
             profile_path("long-read (10-kb reads)",
@@ -2233,6 +2487,9 @@ def main(argv=()):
 
         # ------------------------------------------------ streamed single-end
         se = runs["single-end"]
+        print("host shards (4 for the streamed paths, 2 for the mesh) cut "
+              "in preparation processes: " + ", ".join(
+                  f"{k} {v:.1f} s" for k, v in shards.items()))
         t0 = time.perf_counter()
         clf = classifier(seq_mode=1, batch_size=BATCH,
                          hbm_budget_gb=STREAM_GB, **short)
@@ -2240,8 +2497,9 @@ def main(argv=()):
         assert clf._streaming and clf._n_ranges >= 4, \
             f"streamed: {clf._n_ranges} ranges under {STREAM_GB} GiB"
         assert not hasattr(clf, "db_quad")
-        print(f"streamed: setup (shard + hash) {time.perf_counter() - t0:.1f} "
-              f"s; {clf._n_ranges} ranges of {rs.range_bytes / 1e6:.1f} MB "
+        print(f"streamed: setup (cached shards) "
+              f"{time.perf_counter() - t0:.1f} s; {clf._n_ranges} ranges of "
+              f"{rs.range_bytes / 1e6:.1f} MB "
               f"(rows {rs.quads[0].numel() * 4 / 1e6:.1f} MB + hash "
               f"{rs.hts[0].numel() * 4 / 1e6:.1f} MB, chain "
               f"{clf.hash_chain}) under a budget of {STREAM_GB} GiB; group "
@@ -2417,8 +2675,8 @@ def main(argv=()):
                     full_tuples(ref["results"]))
             merged = (clf.mesh_merged_bytes - m0) / r["dispatches"]
             print(f"{name}: {n / r['dt']:.1f} {unit}/s against the resident "
-                  f"single-device run's {n / ref['dt']:.1f}; setup (shard + "
-                  f"upload) {setup:.1f} s; the db merge reads "
+                  f"single-device run's {n / ref['dt']:.1f}; setup (cached "
+                  f"shards + upload) {setup:.1f} s; the db merge reads "
                   f"{merged / 1e6:.2f} MB a dispatched batch from the other "
                   f"cells ({r['dispatches']} dispatches); peak device memory "
                   f"above the run's start {(r['peak'] - r['base']) / 2**30:.3f}"
@@ -2525,6 +2783,16 @@ def main(argv=()):
 
         lap("distributed")
 
+        got = prep.result("long-read cpu")
+        cpu_check_tuples("long-read", long_check[0], got["tuples"])
+        print(f"long-read CPU check took {got['seconds']:.1f} s in a "
+              f"preparation process while the card ran the paths after it "
+              f"(waited {got['waited']:.1f} s): {got['retries']} retries "
+              f"from the default knobs, emission block {got['path_block']} "
+              f"(card {long_check[1]}), cap {got['cap']} (card "
+              f"{long_check[2]})")
+        assert got["retries"] >= 1
+
         # ------------------------------------------------ measure_scaling
         from metabuli_work_tpu_torch.parallel.scaling import measure_scaling
 
@@ -2538,6 +2806,24 @@ def main(argv=()):
               f"speed-up; on {card}")
 
         lap("measure_scaling")
+
+        # the later phases' DBs and layouts, made while the card runs the
+        # phases before them (a process each for A, B, C)
+        narrow_env = dict(NARROW)
+        aligned = narrow_env["narrow aligned"]
+        prep.start(("orf db", prep_orf_db, (prep_dir,)),
+                   ("updated db", prep_updated_db, (prep_dir,)),
+                   ("narrow layouts A", prep_layouts,
+                    ([("narrow aligned", aligned, {}, False)],)))
+        prep.start(("narrow layouts B", prep_layouts,
+                    ([(n, narrow_env[n], {}, False) for n in
+                      ("narrow unaligned", "bisection", "hash chain 3")],)),
+                   ("common db", prep_common_db, (prep_dir,)),
+                   ("highcap db", prep_highcap_db, ()))
+        prep.start(("narrow layouts C", prep_layouts,
+                    ([("narrow streamed", aligned,
+                       {"hbm_budget_gb": STREAM_GB}, False),
+                      ("narrow mesh", aligned, {}, True)],)))
 
         # ------ the native reader, reference-format DBs, --em, the CLI
         # (after every earlier path, so those run as they did before)
@@ -2567,10 +2853,11 @@ def main(argv=()):
                 else N_CPU_CHECK, **short), device=device)
 
         took = [time.perf_counter()]
-        orf_phase(dp_cuda, classifier_at, fa, runs, index.size, card)
+        orf_phase(dp_cuda, classifier_at, fa, runs, index.size, card,
+                  prep.result("orf db"))
         took.append(time.perf_counter())
         upd = update_phase(dp_cuda, index, classifier_at, fa, reads, runs,
-                           card)
+                           card, prep.result("updated db"))
         took.append(time.perf_counter())
         acc = accession_phase(dp_cuda, classifier_at, fa, upd, runs, card)
         took.append(time.perf_counter())
@@ -2591,14 +2878,17 @@ def main(argv=()):
         # groups, UniRef (after every earlier path and phase)
         took = [time.perf_counter()]
         write_fasta(fa("narrow.fna"), reads[:N_NARROW])
+        packed = {}
+        for part in "ABC":
+            packed.update(prep.result(f"narrow layouts {part}")["layouts"])
         narrow_phases(dp_cuda, classifier, fa, index,
                       runs["single-end"]["results"][:N_NARROW], src, runs,
-                      mesh, card)
+                      mesh, card, packed)
         took.append(time.perf_counter())
         aa_extract_phase(reads, card)
         took.append(time.perf_counter())
-        readgroup_phase(fa, genomes, src, src2,
-                        runs["single-end"]["results"], card)
+        readgroup_phase(fa, src, src2, runs["single-end"]["results"], card,
+                        prep.result("common db"))
         took.append(time.perf_counter())
         uniref_phase(fa, seed, card)
         took.append(time.perf_counter())
@@ -2613,9 +2903,11 @@ def main(argv=()):
         # ---- a many-species DB: every launch the cap > 32 kernel (after
         # every earlier path and phase)
         t0 = time.perf_counter()
-        highcap_phase(dp_cuda, lambda ix, device: Classifier.from_memory(
-            ix, ClassifyParams(seq_mode=1, batch_size=BATCH, **short),
-            device=device), fa, runs, card)
+        hc_check = highcap_phase(
+            dp_cuda, lambda ix, device: Classifier.from_memory(
+                ix, ClassifyParams(seq_mode=1, batch_size=BATCH, **short),
+                device=device), fa, runs, card, prep.result("highcap db"),
+            prep, os.path.join(prep_dir, "hc_cpu.fna"))
         print(f"phase seconds: {HIGHCAP} {time.perf_counter() - t0:.1f}")
         torch.cuda.empty_cache()
 
@@ -2692,10 +2984,14 @@ def main(argv=()):
                        if dp_cuda.variant(k[0]) == which],
         })
     assert kernels, "no path-DP kernel was launched on any path"
+    highcap_cpu_check(prep, hc_check)
+    prep.close()
     lap("main-path parity and timings")
+    total = laps[-1][1] - laps[0][1]
     print("section seconds: " + ", ".join(
         f"{n} {t1 - t0:.1f}" for (_, t0), (n, t1) in zip(laps, laps[1:]))
-        + f"; in all {laps[-1][1] - laps[0][1]:.1f}")
+        + f"; in all {total:.1f} ({100 * total / RUN_LIMIT_S:.1f}% of the "
+        f"{RUN_LIMIT_S} s the run is allowed)")
 
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -43,19 +43,18 @@ def _match_scores(rh):
     return score
 
 
-def _score_increment(rh, shift, max_shift: int):
-    s = torch.zeros(rh.shape, dtype=torch.float32, device=rh.device)
-    for i in range(max_shift):
-        inc = _codon_score((rh >> (i * 2)) & 3)
-        s = torch.where(i < shift, s + inc, s)
-    return s
-
-
-def _ham_increment(rh, shift, max_shift: int):
-    s = torch.zeros(rh.shape, dtype=torch.int32, device=rh.device)
-    for i in range(max_shift):
-        s = s + torch.where(i < shift, (rh >> (i * 2)) & 3, 0).to(torch.int32)
-    return s
+def _increments(rh, shift, codon):
+    """(score, hamming) added by extending a path by `shift` codons of a
+    match's rh: the first `shift` codons' Match::getScore terms added one
+    at a time in codon order (f32), and their hamming distances.  codon
+    is arange(max_shift) as a [max_shift, 1, 1] tensor."""
+    h = (rh[None] >> (2 * codon)) & 3                 # [max_shift, cap, G]
+    on = codon < shift[None]
+    terms = torch.where(on, _codon_score(h), 0.0)
+    s = terms[0]
+    for i in range(1, codon.shape[0]):
+        s = s + terms[i]            # + 0.0 past `shift` leaves s as it is
+    return s, torch.where(on, h, 0).sum(0).to(torch.int32)
 
 
 def sort_candidates(fields, sel, ham, dna):
@@ -115,119 +114,129 @@ def path_dp(sel, species, dna, rh, ham, pos, min_depth, max_shift: int,
 
 def _path_dp_ascending(sel, species, dna, rh, ham, pos, min_depth,
                        max_shift: int, kmer_format: int, dyn_gap: bool):
-    """path_dp on lanes already flipped so positions ascend."""
+    """path_dp on lanes already flipped so positions ascend.
+
+    One step a window, in window order.  The ring of the last S windows'
+    states is held as [S, cap, G] tensors, newest first (ring row s is
+    the window s + 1 back), so a step looks into all S at once: a
+    candidate connects only within the nearest ring window that holds
+    its species, which is the reference's scan of the ring in order.
+    The inputs are padded with S empty windows on each side: the ring's
+    initial states before the first window, the flush after the last."""
     cap, G, W = sel.shape
     S = max_shift
     dev = sel.device
     i32 = torch.int32
-    score0 = _match_scores(rh)
-    sp_m = torch.where(sel, species, _NO_SPECIES)
-    fwd_g = (torch.arange(G, device=dev) % 6 < 3)[None, None, :]
 
-    def zeros(dt=i32):
-        return torch.zeros((cap, G), dtype=dt, device=dev)
+    def padded(a, fill):
+        """[W + 2S, cap, G], window-major, S windows of `fill` each side."""
+        e = torch.full((S, cap, G), fill, device=dev,
+                       dtype=a.dtype if a.dtype in (torch.bool,
+                                                    torch.float32) else i32)
+        return torch.cat([e, a.permute(2, 0, 1), e])
 
-    # ring: S states, newest first; each a dict of [cap, G] tensors
-    states = [dict(sp=zeros() - 1, dna=zeros(),
-                   score=zeros(torch.float32), depth=zeros(), ham=zeros(),
-                   start=zeros(), rhs=zeros(), rhe=zeros(),
-                   conn=zeros(torch.bool), pos=zeros(), md=zeros())
-              for _ in range(S)]
-    emitted = []
+    sp_p = padded(torch.where(sel, species, _NO_SPECIES).to(i32), _NO_SPECIES)
+    sel_p = padded(sel, False)
+    dna_p, rh_p, ham_p, pos_p, md_p = (padded(a, 0) for a in
+                                       (dna, rh, ham, pos, min_depth))
+    score_p = padded(_match_scores(rh), 0.0)
+    # the same windows newest first: rows L - t .. L - t + S - 1 of these
+    # are windows t - 1 .. t - S, the ring of the step at window t
+    L = W + 2 * S
+    sp_q, dna_q = sp_p.flip(0), dna_p.flip(0)
+    live_q = sp_q >= 0
+    pos_q = pos_p[:, 0].flip(0)     # every row of a window holds its pos
+    fwd = (torch.arange(G, device=dev) % 6 < 3)[None, None, :, None]
+    codon = torch.arange(S, device=dev)[:, None, None]
+    if not dyn_gap:
+        shv = (codon + 1).to(i32)                        # [S, 1, 1]
+        sh3 = (3 * shv)[..., None]                       # [S, 1, 1, 1]
+        mask24 = (1 << (24 - sh3)) - 1
 
-    def step(sel_w, sp_w, dna_w, rh_w, ham_w, pos_w, score_w, md_w):
-        cur_sp = sp_w[None]
-        nd = dna_w[None]
-        found = zeros(torch.bool)
-        any_ok = zeros(torch.bool)
-        shift_sel = zeros()
-        b_score = zeros(torch.float32)
-        b_depth, b_ham, b_start, b_rhs = zeros(), zeros(), zeros(), zeros()
-        for s, st in enumerate(states):
-            p_sp = st["sp"]
-            # the predecessor window is the NEAREST one containing the
-            # candidate's species; consecutiveness is checked there only
-            same_sp = (p_sp[:, None] == cur_sp) & (p_sp[:, None] >= 0)
-            has_sp = same_sp.any(0)
-            use_s = has_sp & ~found & sel_w
-            found = found | has_sp
-            cd = st["dna"][:, None]
-            if dyn_gap:
-                # every state row holds the same window pos: row 0 is
-                # representative
-                gapv = torch.div(pos_w - st["pos"][0][None, :], 3,
-                                 rounding_mode="floor")
-                ok_gap = (gapv >= 1) & (gapv <= S)
-                shv = torch.clamp(gapv, 1, S).to(i32)
-                sh3 = (3 * shv)[None]
-                mask24 = (1 << (24 - sh3)) - 1
-            else:
-                shv = s + 1
-                ok_gap = None
-                sh3 = 3 * (s + 1)
-                mask24 = (1 << (24 - sh3)) - 1
-            if kmer_format == 2:
-                ok_f = (cd & mask24) == (nd >> sh3)
-                ok_r = (nd & mask24) == (cd >> sh3)
-            else:
-                ok_f = (cd >> sh3) == (nd & mask24)
-                ok_r = (nd >> sh3) == (cd & mask24)
-            ok = torch.where(fwd_g, ok_f, ok_r) & same_sp & use_s[None]
-            if ok_gap is not None:
-                ok = ok & ok_gap[None]
+    def ring0(dt=i32):
+        return torch.zeros((S, cap, G), dtype=dt, device=dev)
 
-            aok = ok.any(0)
-            cand = torch.where(ok, st["score"][:, None], -1.0)
-            best = cand.max(0).values
-            # first strict max in the pre-sorted (hamming, dna) cap order
-            oh = ok & (cand >= best[None])
-            first = oh.to(i32).argmax(0)                    # [cap, G]
-            pick = lambda a: torch.gather(a, 0, first)
-            any_ok = any_ok | aok
-            shift_sel = torch.where(aok, shv, shift_sel)
-            b_score = torch.where(aok, best, b_score)
-            b_depth = torch.where(aok, pick(st["depth"]), b_depth)
-            b_ham = torch.where(aok, pick(st["ham"]), b_ham)
-            b_start = torch.where(aok, pick(st["start"]), b_start)
-            b_rhs = torch.where(aok, pick(st["rhs"]), b_rhs)
-            st["conn"] = st["conn"] | ok.any(1)
+    # [S, cap, G] -> [S, 1, G, cap]: the ring's candidates on the
+    # innermost axis, which every reduction over them runs along
+    ring = lambda a: a.transpose(1, 2)[:, None]
+    push = lambda r, new: torch.cat([new[None], r[:-1]])
 
-        inc = _score_increment(rh_w, shift_sel, S)
-        hinc = _ham_increment(rh_w, shift_sel, S)
-        n_score = torch.where(any_ok, b_score + inc, score_w)
-        n_depth = torch.where(any_ok, b_depth + shift_sel, 1).to(i32)
-        n_ham = torch.where(any_ok, b_ham + hinc, ham_w).to(i32)
-        n_start = torch.where(any_ok, b_start, pos_w)
-        n_rhs = torch.where(any_ok, b_rhs, rh_w)
+    # the DP fields of the ring's states (the rest are the padded inputs)
+    r_score, r_conn = ring0(torch.float32), ring0(torch.bool)
+    r_depth, r_ham, r_start, r_rhs = ring0(), ring0(), ring0(), ring0()
+    retired = []
+    for t in range(S, S + W + S):
+        sel_w, sp_w, dna_w, rh_w, pos_w = (sel_p[t], sp_p[t], dna_p[t],
+                                           rh_p[t], pos_p[t])
+        q = slice(L - t, L - t + S)
+        # [S, cap (this window's candidate), G, cap (ring candidate)]
+        same_sp = (ring(sp_q[q]) == sp_w[None, :, :, None]) \
+            & ring(live_q[q])
+        has_sp = same_sp.any(-1)                         # [S, cap, G]
+        use = has_sp & (torch.cumsum(has_sp, 0) == 1) & sel_w[None]
+        if dyn_gap:
+            gapv = torch.div(pos_w[None] - pos_q[q][:, None, :], 3,
+                             rounding_mode="floor")
+            ok_gap = (gapv >= 1) & (gapv <= S)
+            shv = torch.clamp(gapv, 1, S).to(i32)       # [S, cap, G]
+            sh3 = (3 * shv)[..., None]
+            mask24 = (1 << (24 - sh3)) - 1
+        cd, nd = ring(dna_q[q]), dna_w[None, :, :, None]
+        if kmer_format == 2:
+            ok_f = (cd & mask24) == (nd >> sh3)
+            ok_r = (nd & mask24) == (cd >> sh3)
+        else:
+            ok_f = (cd >> sh3) == (nd & mask24)
+            ok_r = (nd >> sh3) == (cd & mask24)
+        ok = torch.where(fwd, ok_f, ok_r) & same_sp & use[..., None]
+        if dyn_gap:
+            ok = ok & ok_gap[..., None]
+        aok = ok.any(-1)                                 # [S, cap, G]
+        cand = torch.where(ok, ring(r_score), -1.0)
+        best = cand.max(-1).values
+        # first strict max in the pre-sorted (hamming, dna) cap order
+        first = (ok & (cand >= best[..., None])).to(i32).argmax(-1)
+        r_conn = r_conn | ok.any(1).transpose(1, 2)
+        # at most one ring row connects a candidate: the nearest
+        any_ok = aok.any(0)
+        s_of = aok.to(i32).argmax(0)                     # [cap, G]
+        flat = s_of * cap + torch.gather(first, 0, s_of[None])[0]
 
-        r = states[S - 1]                           # retire the oldest
-        emitted.append({
-            "emit": (r["sp"] >= 0) & ~r["conn"] & (r["depth"] >= r["md"]),
-            # strip the euk flag (species bit 30) at emission
-            "species": r["sp"] & 0x3FFFFFFF,
-            "start": r["start"],
-            "end": r["pos"] + 23,
-            "score": r["score"],
-            "hamming": r["ham"],
-            "depth": r["depth"],
-            "rh_start": r["rhs"],
-            "rh_end": r["rhe"],
-        })
-        new = dict(sp=torch.where(sel_w, sp_w, _NO_SPECIES).to(i32),
-                   dna=dna_w, score=n_score, depth=n_depth, ham=n_ham,
-                   start=n_start, rhs=n_rhs, rhe=rh_w, conn=zeros(torch.bool),
-                   pos=pos_w, md=md_w)
-        states.insert(0, new)
-        states.pop()
+        def pick(r):
+            return torch.gather(r.reshape(S * cap, G), 0, flat)
 
-    for w in range(W):
-        step(sel[:, :, w], sp_m[:, :, w], dna[:, :, w], rh[:, :, w],
-             ham[:, :, w], pos[:, :, w], score0[:, :, w], min_depth[:, :, w])
-    # flush S empty windows to retire the rest
-    zb, zi = zeros(torch.bool), zeros()
-    for _ in range(S):
-        step(zb, zi - 1, zi, zi, zi, zi, zeros(torch.float32), zi)
-    return {k: torch.stack([e[k] for e in emitted]) for k in emitted[0]}
+        shift = torch.gather(shv.expand(S, cap, G), 0, s_of[None])[0]
+        inc, hinc = _increments(rh_w, shift, codon)
+        n_score = torch.where(any_ok, pick(r_score) + inc, score_p[t])
+        n_depth = torch.where(any_ok, pick(r_depth) + shift, 1).to(i32)
+        n_ham = torch.where(any_ok, pick(r_ham) + hinc, ham_p[t]).to(i32)
+        n_start = torch.where(any_ok, pick(r_start), pos_w)
+        n_rhs = torch.where(any_ok, pick(r_rhs), rh_w)
+
+        # retire the oldest, then push this window's states
+        retired.append((r_score[S - 1], r_depth[S - 1], r_ham[S - 1],
+                        r_start[S - 1], r_rhs[S - 1], r_conn[S - 1]))
+        r_score, r_depth, r_ham = (push(r_score, n_score),
+                                   push(r_depth, n_depth),
+                                   push(r_ham, n_ham))
+        r_start, r_rhs = push(r_start, n_start), push(r_rhs, n_rhs)
+        r_conn = push(r_conn, torch.zeros_like(sel_w))
+    # step t retired window t - 2S: padded row t - S
+    score, depth, ham, start, rhs, conn = (torch.stack(f)
+                                           for f in zip(*retired))
+    T = W + S
+    return {
+        "emit": (sp_p[:T] >= 0) & ~conn & (depth >= md_p[:T]),
+        # strip the euk flag (species bit 30) at emission
+        "species": sp_p[:T] & 0x3FFFFFFF,
+        "start": start,
+        "end": pos_p[:T] + 23,
+        "score": score,
+        "hamming": ham,
+        "depth": depth,
+        "rh_start": rhs,
+        "rh_end": rh_p[:T],
+    }
 
 
 def pack_paths_blocked(out, block_w: int, compact5: bool = False):

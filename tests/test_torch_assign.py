@@ -31,6 +31,7 @@ from test_torch_flagship import _kw, setup  # noqa: F401  (fixture)
 from tests_helpers_tax import make_flat_tax
 from torch_port_db import (build_db, simulate_pairs, simulate_reads,
                            write_inputs, write_reads)
+from torch_port_db import one_torch_thread  # noqa: F401  (autouse)
 
 
 # ------------------------------------------------------------ device_assign

@@ -22,6 +22,7 @@ from metabuli_work_tpu_torch.index import builder as tbuilder
 from metabuli_work_tpu_torch.taxonomy import Taxonomy
 
 from torch_port_db import ACGT, simulate_reads, write_inputs, write_reads
+from torch_port_db import one_torch_thread  # noqa: F401  (autouse)
 
 PARAMS = dict(seq_mode=1, min_score=0.15, min_sp_score=0.5, batch_size=8)
 PKGS = (("j", jbuilder), ("t", tbuilder))

@@ -25,6 +25,7 @@ from metabuli_work_tpu_torch.index.format import load_index
 
 from torch_port_db import (gene_genome, simulate_reads, write_inputs,
                            write_taxonomy_blob, write_tool_inputs)
+from torch_port_db import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -17,6 +17,7 @@ from metabuli_work_tpu_torch.classify.taxonomer import MATCH_DTYPE as T_DTYPE
 from metabuli_work_tpu_torch.ops import compact_torch
 
 from torch_port_db import build_db, simulate_reads, write_inputs
+from torch_port_db import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

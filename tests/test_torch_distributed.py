@@ -20,6 +20,7 @@ from metabuli_work_tpu.index.builder import build_database as jbuild
 from metabuli_work_tpu_torch.classify.pipeline import Classifier, ClassifyParams
 
 from torch_port_db import build_db, simulate_reads, write_inputs, write_reads
+from torch_port_db import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PARAMS = dict(seq_mode=1, min_score=0.15, min_sp_score=0.5, batch_size=8)

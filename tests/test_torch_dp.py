@@ -15,6 +15,7 @@ from metabuli_work_tpu_torch.ops import dp_cuda, dp_torch
 from torch_dp_cases import (EDGES, GRID, HIGH_CAP, I32, edge_case,
                             flipped_inputs, high_cap_case, overflow_case,
                             random_case, torch_blocked)
+from torch_port_db import one_torch_thread  # noqa: F401  (autouse)
 
 PALLAS_MAX_CAP = 80      # interpret mode: 40 s at cap 128, minutes at 384
 

@@ -18,6 +18,7 @@ from metabuli_work_tpu_torch.ops import dp_cuda
 from torch_dp_cases import (EDGES, GRID, HIGH_CAP, LONG_W, edge_case,
                             high_cap_case, overflow_case, random_case,
                             torch_blocked)
+from torch_port_db import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.cuda

@@ -9,6 +9,8 @@ import torch
 from metabuli_work_tpu.ops import encode_jax
 from metabuli_work_tpu_torch.ops import encode_torch
 
+from torch_port_db import one_torch_thread  # noqa: F401  (autouse)
+
 
 def _reads(seed, B=6, L=96):
     rng = np.random.default_rng(seed)

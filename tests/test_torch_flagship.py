@@ -22,6 +22,7 @@ from metabuli_work_tpu_torch.models import flagship as tfl
 from test_torch_match import packed_state
 from torch_port_db import (build_db, simulate_pairs, simulate_reads,
                            write_inputs)
+from torch_port_db import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module", params=[False, True], ids=["plain", "syncmer"])
@@ -75,6 +76,21 @@ def _jax_step(s, cap, path_width):
         pallas_interpret=True, **_kw(s, cap, path_width))
 
 
+@pytest.fixture(scope="module")
+def jax_step(setup):
+    """The JAX fused step of setup's reads (pairs when paired), computed
+    once a (paired, cap, path_width) for the cases that compare with it."""
+    memo = {}
+
+    def get(paired, cap, path_width):
+        key = (paired, cap, path_width)
+        if key not in memo:
+            step = _jax_step_paired if paired else _jax_step
+            memo[key] = step(setup, cap, path_width)
+        return memo[key]
+    return get
+
+
 def _torch_step(s, cap, path_width):
     return tfl.fused_step_dp(
         torch.from_numpy(s["reads"]), torch.from_numpy(s["lens"]),
@@ -83,8 +99,8 @@ def _torch_step(s, cap, path_width):
 
 
 @pytest.mark.parametrize("cap,path_width", [(4, 0), (8, 64)])
-def test_fused_step_dp_matches_jax(setup, cap, path_width):
-    jh, jres = _jax_step(setup, cap, path_width)
+def test_fused_step_dp_matches_jax(setup, jax_step, cap, path_width):
+    jh, jres = jax_step(False, cap, path_width)
     th, tres = _torch_step(setup, cap, path_width)
     jh = np.asarray(jh)
     np.testing.assert_array_equal(jh, th.numpy())
@@ -94,9 +110,9 @@ def test_fused_step_dp_matches_jax(setup, cap, path_width):
 
 
 @pytest.mark.parametrize("out_w", [0, 4])
-def test_redundancy_counts_matches_jax(setup, out_w):
+def test_redundancy_counts_matches_jax(setup, jax_step, out_w):
     s = setup
-    _, jres = _jax_step(s, 8, 0)
+    _, jres = jax_step(False, 8, 0)
     _, tres = _torch_step(s, 8, 0)
     B = len(s["reads"])
     rng = np.random.default_rng(out_w)
@@ -145,10 +161,10 @@ def _torch_step_paired(s, cap, path_width):
 
 
 @pytest.mark.parametrize("cap,path_width", [(4, 0), (8, 64)])
-def test_fused_step_dp_paired_matches_jax(setup, cap, path_width):
+def test_fused_step_dp_paired_matches_jax(setup, jax_step, cap, path_width):
     """Two parts (mate 1, mate 2) with different W: header, paths and
     all six resident tensors, which span both parts concatenated."""
-    jh, jres = _jax_step_paired(setup, cap, path_width)
+    jh, jres = jax_step(True, cap, path_width)
     th, tres = _torch_step_paired(setup, cap, path_width)
     jh = np.asarray(jh)
     np.testing.assert_array_equal(jh, th.numpy())
@@ -162,9 +178,9 @@ def test_fused_step_dp_paired_matches_jax(setup, cap, path_width):
 
 
 @pytest.mark.parametrize("out_w", [0, 4])
-def test_redundancy_counts_two_parts_matches_jax(setup, out_w):
+def test_redundancy_counts_two_parts_matches_jax(setup, jax_step, out_w):
     s, p = setup, setup["pair"]
-    _, jres = _jax_step_paired(s, 8, 0)
+    _, jres = jax_step(True, 8, 0)
     _, tres = _torch_step_paired(s, 8, 0)
     B = len(p["r1"])
     species = np.unique(s["index"].species)

@@ -30,6 +30,7 @@ from metabuli_work_tpu_torch.taxonomy import Taxonomy
 
 from test_torch_match import packed_state
 from torch_port_db import ACGT, simulate_reads, write_reads
+from torch_port_db import one_torch_thread  # noqa: F401  (autouse)
 
 N_SPECIES = 40
 GENOME_LEN = 6000

@@ -9,6 +9,8 @@ import os
 import pytest
 import torch
 
+from torch_port_db import one_torch_thread  # noqa: F401  (autouse)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "metabuli_work_tpu_torch")
 
@@ -59,6 +61,26 @@ def test_no_jax_imports(path):
         root = mod.split(".")[0]
         assert root not in ("jax", "jaxlib", "metabuli_work_tpu"), \
             f"{path} imports {mod}"
+
+
+def test_every_port_test_module_takes_the_thread_fixture():
+    """Each tests/test_torch_*.py imports torch_port_db.one_torch_thread
+    at its top level, which makes the fixture autouse in that module: a
+    file that forgot it would run its torch operators on a thread pool
+    a core wide in every tier-1 worker."""
+    tests = os.path.join(REPO, "tests")
+    files = sorted(f for f in os.listdir(tests)
+                   if f.startswith("test_torch_") and f.endswith(".py"))
+    assert len(files) > 20
+    for f in files:
+        path = os.path.join(tests, f)
+        tree = ast.parse(open(path).read(), path)
+        assert any(isinstance(node, ast.ImportFrom)
+                   and node.module == "torch_port_db"
+                   and any(a.name == "one_torch_thread" and a.asname is None
+                           for a in node.names)
+                   for node in tree.body), \
+            f"{f} does not import torch_port_db.one_torch_thread"
 
 
 def test_entry_points_need_a_card_unless_cpu_requested(tmp_path):

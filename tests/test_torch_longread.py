@@ -16,6 +16,7 @@ from metabuli_work_tpu.index.builder import build_database as jbuild
 from metabuli_work_tpu_torch.classify.pipeline import Classifier, ClassifyParams
 
 from torch_port_db import build_db, simulate_long, write_inputs, write_reads
+from torch_port_db import one_torch_thread  # noqa: F401  (autouse)
 
 LONG = dict(seq_mode=3, min_score=0.008, min_sp_score=0.0, batch_size=4)
 

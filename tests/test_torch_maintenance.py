@@ -13,7 +13,6 @@ import shutil
 
 import numpy as np
 import pytest
-import torch
 
 from metabuli_work_tpu.classify.filter import filter_reads as jfilter
 from metabuli_work_tpu.classify.pipeline import Classifier as JClassifier
@@ -33,19 +32,9 @@ from metabuli_work_tpu_torch.taxonomy import Taxonomy
 
 from torch_port_db import (ACGT, simulate_pairs, simulate_reads,
                            write_inputs, write_reads, write_taxonomy_blob)
+from torch_port_db import one_torch_thread  # noqa: F401  (autouse)
 
 PARAMS = dict(seq_mode=1, min_score=0.15, min_sp_score=0.5, batch_size=8)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread for these small CPU runs: the tier-1 run shares
-    the host's cores among its workers, and a pool of threads a worker
-    only oversubscribes them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _records(results):

@@ -17,6 +17,7 @@ from metabuli_work_tpu_torch.index import packing
 from metabuli_work_tpu_torch.ops import match_torch
 
 from torch_port_db import build_db, simulate_reads, write_inputs
+from torch_port_db import one_torch_thread  # noqa: F401  (autouse)
 
 
 def packed_state(index):

@@ -31,6 +31,7 @@ from metabuli_work_tpu_torch.parallel.sharding import make_mesh
 
 from test_torch_match import packed_state
 from torch_port_db import build_db, simulate_reads, write_inputs, write_reads
+from torch_port_db import one_torch_thread  # noqa: F401  (autouse)
 
 PARAMS = dict(seq_mode=1, min_score=0.15, min_sp_score=0.5, batch_size=8)
 

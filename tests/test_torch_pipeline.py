@@ -22,8 +22,10 @@ from metabuli_work_tpu_torch.parallel.sharding import make_mesh
 
 from torch_port_db import (build_db, simulate_pairs, simulate_reads,
                            write_inputs, write_reads)
+from torch_port_db import one_torch_thread  # noqa: F401  (autouse)
 
 PARAMS = dict(seq_mode=1, min_score=0.15, min_sp_score=0.5, batch_size=8)
+PAIRED = {**PARAMS, "seq_mode": 2}
 
 
 @pytest.fixture(scope="module", params=[False, True], ids=["plain", "syncmer"])
@@ -98,11 +100,21 @@ def _both(jdb, kw, *paths, tweak=None):
             _tuples(tclf.classify_file(*paths)), tclf)
 
 
-def test_paired_classifier_matches_jax(dbs):
+@pytest.fixture(scope="module")
+def jax_paired(dbs):
+    """The JAX Classifier's results of the pairs under PARAMS, --seq-mode
+    2: one run for the cases that compare with it."""
+    root, jdb, _, _ = dbs
+    return JClassifier(jdb, JParams(**PAIRED)).classify_file(
+        os.path.join(root, "r1.fna"), os.path.join(root, "r2.fna"))
+
+
+def test_paired_classifier_matches_jax(dbs, jax_paired):
     root, jdb, _, _ = dbs
     r1, r2 = os.path.join(root, "r1.fna"), os.path.join(root, "r2.fna")
-    ref, got, _ = _both(jdb, dict(seq_mode=2), r1, r2)
-    assert got == ref
+    got = _tuples(Classifier(jdb, ClassifyParams(**PAIRED),
+                             device="cpu").classify_file(r1, r2))
+    assert got == _tuples(jax_paired)
     assert sum(t[1] for t in got) >= 18
     # the second file is read in --seq-mode 2 only
     single = _tuples(Classifier(jdb, ClassifyParams(**PARAMS),
@@ -112,12 +124,11 @@ def test_paired_classifier_matches_jax(dbs):
     assert single == alone != got
 
 
-def test_paired_records_carry_both_mates(dbs):
+def test_paired_records_carry_both_mates(dbs, jax_paired):
     root, jdb, _, _ = dbs
     r1, r2 = os.path.join(root, "r1.fna"), os.path.join(root, "r2.fna")
-    p = {**PARAMS, "seq_mode": 2}
-    ref = JClassifier(jdb, JParams(**p)).classify_file(r1, r2)
-    got = Classifier(jdb, ClassifyParams(**p),
+    ref = jax_paired
+    got = Classifier(jdb, ClassifyParams(**PAIRED),
                      device="cpu").classify_file(r1, r2)
     assert [(q.length1, q.length2, q.total_length, q.covered_length)
             for q in got] == [(q.length1, q.length2, q.total_length,

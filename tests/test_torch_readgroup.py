@@ -25,6 +25,7 @@ from metabuli_work_tpu_torch.readgroup import grouping as tgroup
 
 from torch_port_db import simulate_pairs, simulate_reads, write_inputs, \
     write_reads
+from torch_port_db import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -26,6 +26,7 @@ from metabuli_work_tpu_torch.index.builder import build_database as tbuild
 
 from torch_port_db import (simulate_reads, write_inputs, write_reads,
                            write_taxonomy_blob)
+from torch_port_db import one_torch_thread  # noqa: F401  (autouse)
 
 PARAMS = dict(seq_mode=1, min_score=0.15, min_sp_score=0.5, batch_size=8)
 U64 = np.uint64

@@ -24,6 +24,7 @@ from metabuli_work_tpu_torch.parallel import sharding as tsh
 
 from test_torch_match import packed_state
 from torch_port_db import build_db, simulate_pairs, simulate_reads, write_inputs
+from torch_port_db import one_torch_thread  # noqa: F401  (autouse)
 
 CPU8 = ["cpu"] * 8
 

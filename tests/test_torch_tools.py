@@ -31,6 +31,7 @@ import metabuli_work_tpu_torch.taxonomy.tools as ttools
 from metabuli_work_tpu_torch.index.builder import build_database
 
 from torch_port_db import write_inputs, write_tool_inputs
+from torch_port_db import one_torch_thread  # noqa: F401  (autouse)
 
 MODULES = {
     "gtdb": (jgtdb, tgtdb), "tools": (jtools, ttools),

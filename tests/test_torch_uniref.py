@@ -23,6 +23,8 @@ from metabuli_work_tpu_torch.uniref import classifier as tclassifier
 from metabuli_work_tpu_torch.uniref import db as tdb
 from metabuli_work_tpu_torch.uniref.tree import UnirefTree
 
+from torch_port_db import one_torch_thread  # noqa: F401  (autouse)
+
 AA = np.array(list("ARNDCQEGHILKMFPSTWYV"))
 
 

@@ -1,12 +1,40 @@
 """Small synthetic databases and reads shared by the tests that hold the
-torch package against the JAX package (tests/test_torch_*.py)."""
+torch package against the JAX package (tests/test_torch_*.py), and the
+thread setting every one of those modules takes."""
 
 import os
 import shutil
 
 import numpy as np
+import pytest
+import torch
 
 ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for the module, and OMP_NUM_THREADS=1 for the
+    processes it starts (the two-process mesh runs, spawned build
+    workers); both restored afterwards.  Every tests/test_torch_*.py
+    imports this fixture, which makes it autouse there
+    (test_torch_isolation.py checks that each does).  The tensors of
+    these tests are tiny, and the tier-1 run shares the host's cores
+    among several pytest workers: a pool of a thread a core in every
+    worker wakes them all for each small operator and only
+    oversubscribes the host."""
+    n = torch.get_num_threads()
+    env = os.environ.get("OMP_NUM_THREADS")
+    torch.set_num_threads(1)
+    os.environ["OMP_NUM_THREADS"] = "1"
+    yield
+    torch.set_num_threads(n)
+    if env is None:
+        del os.environ["OMP_NUM_THREADS"]
+    else:
+        os.environ["OMP_NUM_THREADS"] = env
+
+
 _COMP = np.zeros(256, dtype=np.uint8)
 for _a, _b in zip(b"ACGT", b"TGCA"):
     _COMP[_a] = _b
