@@ -80,7 +80,12 @@
      directory's memmap cache), then the single-end reads through
      Classifier(dir); every read must equal the native-layout single-end
      run's (tax_cnt and top_species included); prints the export and
-     import seconds, the bytes of the delta stream and reads/s;
+     import seconds, the bytes of the delta stream and reads/s; then two
+     spawned CPU-only processes import a fresh copy of the diffIdx
+     database at once on a cold cache (one decodes under the cache's
+     lock, the other waits and maps it): each index must equal the
+     native one, mapped from the copy's cache, with no *.new file left;
+     prints the seconds each took beside the one-process import's;
    - em: the single-end reads with em=True (made with
      METABULI_DEVICE_ASSIGN=1 set, which --em overrides: no batch may
      take the device-assign dispatch), then run_em; the species score
@@ -211,6 +216,8 @@ after a warm-up on WARM over the global mesh and writes its own reads'
 records, its launch counts and its parity checks to OUT.
 """
 
+import glob
+import hashlib
 import json
 import multiprocessing
 import os
@@ -909,12 +916,15 @@ def reader_phase(clf, fa, reads, card):
               f"{card}")
 
 
-def reference_phases(dp_cuda, index, classifier_at, fa, runs, src, card):
+def reference_phases(dp_cuda, index, classifier_at, fa, runs, src, card,
+                     prep):
     """Both reference layouts of the smoke index: written (export), read
     back by load_index (the windowed decode into <dir>/.import_cache),
     then classified through Classifier(dir) on the card, which maps that
-    cache; every read equal to the native-layout single-end run.
-    Returns {layout: directory}."""
+    cache; every read equal to the native-layout single-end run.  Then
+    the two-process import of a cold copy of the diffIdx directory,
+    whose processes `prep` starts beside the classify runs and a barrier
+    releases after them.  Returns {layout: directory}."""
     from metabuli_work_tpu_torch.index.format import load_index
 
     se = runs["single-end"]
@@ -932,6 +942,14 @@ def reference_phases(dp_cuda, index, classifier_at, fa, runs, src, card):
             assert np.array_equal(getattr(imported, k), getattr(index, k)), \
                 f"{name}: imported {k} differ from the index's"
         del imported
+        if layout == "diffIdx":
+            alone, cold = t_import, fa("refdb_diffIdx_cold")
+            shutil.copytree(d, cold, ignore=shutil.ignore_patterns(
+                ".import_cache"))
+            go = multiprocessing.get_context("spawn").Barrier(3)
+            for i in range(2):
+                prep.start((f"two-process import {i}", prep_import,
+                            (cold, go)))
         t0 = time.perf_counter()
         clf = classifier_at(d)
         setup = time.perf_counter() - t0
@@ -954,7 +972,36 @@ def reference_phases(dp_cuda, index, classifier_at, fa, runs, src, card):
         stage_table(name, clf, card)
         clf = None
         torch.cuda.empty_cache()
+    go.wait(timeout=120)
+    took = []
+    want = index_digest(index)
+    for i in range(2):
+        got = prep.result(f"two-process import {i}")
+        assert got["digest"] == want, \
+            f"two-process import: process {i}'s index differs from the native"
+        assert os.path.dirname(got["source"]) == os.path.join(
+            cold, ".import_cache"), got["source"]
+        took.append(got["import_s"])
+    assert not glob.glob(os.path.join(cold, ".import_cache", "*.new"))
+    print(f"reference-format (diffIdx) two-process import: both processes "
+          f"imported a fresh copy on a cold cache at once, each index equal "
+          f"to the native one ({index.size} entries, mapped from the copy's "
+          f"import cache), no *.new file left; {took[0]:.2f} s and "
+          f"{took[1]:.2f} s (one decodes under the cache's lock, the other "
+          f"waits for it and maps the result), one process alone "
+          f"{alone:.2f} s; CPU-only processes on the host of {card}")
     return dirs
+
+
+def index_digest(index):
+    """blake2b of the index's values, taxids and species with their
+    dtypes and shapes."""
+    h = hashlib.blake2b(digest_size=16)
+    for k in ("values", "taxids", "species"):
+        a = np.ascontiguousarray(getattr(index, k))
+        h.update(f"{k}:{a.dtype.str}:{a.shape}".encode())
+        h.update(memoryview(a).cast("B"))
+    return h.hexdigest()
 
 
 def em_phase(dp_cuda, classifier, fa, runs, src, card):
@@ -2170,6 +2217,21 @@ def prep_cpu_classify(db, reads, params, knobs, threads):
             "path_block": cpu._path_block}
 
 
+def prep_import(d, go):
+    """One process of the two-process import: load_index(d) once the
+    other process and the main one pass the barrier `go`.  Returns its
+    seconds, the file its values are mapped from and the index's
+    digest."""
+    from metabuli_work_tpu_torch.index.format import load_index
+
+    go.wait(timeout=600)
+    t0 = time.perf_counter()
+    index = load_index(d)
+    took = time.perf_counter() - t0
+    return {"import_s": took, "source": index.values.filename,
+            "digest": index_digest(index)}
+
+
 def prep_highcap_db():
     index, _, hit = build_or_load_highcap_db()
     return {"hit": hit, "entries": int(index.size)}
@@ -2835,7 +2897,7 @@ def smoke(prep, prep_dir, profiled, seed):
         ref_dirs = reference_phases(
             dp_cuda, index, lambda d: Classifier(d, ClassifyParams(
                 seq_mode=1, batch_size=BATCH, **short), device="cuda"),
-            fa, runs, src, card)
+            fa, runs, src, card, prep)
         em_phase(dp_cuda, lambda device="cuda", **kw: classifier(
             device, **kw, **short), fa, runs, src, card)
         head = cli_phase(fa, reads, ref_dirs["diffIdx"],

@@ -20,7 +20,9 @@ Reference layout interop (diffIdx/info/split; Appendix A.1 of SURVEY.md):
   internal taxids, and the decoded arrays land in .npy files under
   <db>/.import_cache, reused while the source files and the taxonomy's
   species table are unchanged (in a temp dir, deleted once mapped, when
-  the DB directory is read-only).
+  the DB directory is read-only).  One process decodes a cache under an
+  exclusive flock on <db>/.import_cache/.lock; others that load the same
+  DB meanwhile wait for it and map what it published.
 
 Imported arrays are copy-on-write memory maps of those files: torch
 tensors and the packed-layout cache read their pages without a host
@@ -28,6 +30,8 @@ copy, and a write to them (none is made) would stay private to the
 process, never reaching the cache.
 """
 
+import contextlib
+import fcntl
 import hashlib
 import json
 import os
@@ -321,10 +325,10 @@ def _import_cache_dir(db_dir):
     cache = os.path.join(db_dir, ".import_cache")
     try:
         os.makedirs(cache, exist_ok=True)
-        probe = os.path.join(cache, ".w")
-        with open(probe, "w"):
+        # a name of this process's own: another one probing at once
+        # must not delete it
+        with tempfile.TemporaryFile(dir=cache):
             pass
-        os.unlink(probe)
         return cache, True
     except OSError:
         return tempfile.mkdtemp(prefix="mwt_import_"), False
@@ -356,12 +360,18 @@ def import_reference_format(db_dir, taxonomy: Taxonomy, meta=None,
     peak RAM is O(window), not O(DB) — a prebuilt 8-620 GiB reference
     DB (the reference README's prebuilt DBs) converts under a RAM budget.
     Decoded arrays land in memmaps under <db_dir>/.import_cache, reused
-    on reload while _import_signature is unchanged.  A new decode
-    writes fresh files and renames them over the old ones, so maps of
-    an earlier import stay valid.  When db_dir is not writable, the
-    arrays are decoded into a temp dir that is deleted as soon as they
-    are mapped: its space is freed when the index is dropped, and every
-    load decodes again (convertDB --output keeps a native copy).
+    on reload while _import_signature is unchanged; a reload takes no
+    lock and writes nothing.  Otherwise the decode runs under an
+    exclusive flock on <cache>/.lock: a process that waited for another
+    one's decode of the same signature maps its arrays instead, and the
+    fixed *.new names of a killed decode are overwritten by the next.
+    A new decode writes fresh files and renames them, then the
+    signature, over the old ones, so maps of an earlier import stay
+    valid and a reader never sees a half-written file.  When db_dir is
+    not writable, the arrays are decoded, with no lock, into a temp dir
+    of this process that is deleted as soon as they are mapped: its
+    space is freed when the index is dropped, and every load decodes
+    again (convertDB --output keeps a native copy).
 
     The window decode mirrors the reference's own streaming reader
     (DeltaIdxReader::getValues, DeltaIdxReader.h:214-229): each pass
@@ -382,14 +392,48 @@ def import_reference_format(db_dir, taxonomy: Taxonomy, meta=None,
     sig = _import_signature(db_dir, src, use_mtbl, taxonomy)
     names = ("kmers.npy", "infos.npy", "species.npy")
     paths = [os.path.join(cache, n) for n in names]
-    if _read_text(sig_path) == sig and all(os.path.exists(p) for p in paths):
+
+    def published():
+        return (_read_text(sig_path) == sig
+                and all(os.path.exists(p) for p in paths))
+
+    if published():
         return _mapped_index(paths, taxonomy, meta)
     if not kept:
         print(f"import: {db_dir} is not writable, so the decoded DB is not "
               f"cached and every load decodes it again; `convertDB "
               f"{db_dir} --output DIR` writes a native copy",
               file=sys.stderr)
+        _decode_reference(db_dir, src, use_mtbl, taxonomy, paths, sig_path,
+                          sig, window_bytes)
+        index = _mapped_index(paths, taxonomy, meta)
+        shutil.rmtree(cache, ignore_errors=True)
+        return index
+    with _exclusive(os.path.join(cache, ".lock")):
+        if not published():     # else another process decoded meanwhile
+            _decode_reference(db_dir, src, use_mtbl, taxonomy, paths,
+                              sig_path, sig, window_bytes)
+        return _mapped_index(paths, taxonomy, meta)
 
+
+@contextlib.contextmanager
+def _exclusive(path):
+    """An exclusive flock on `path` (created when missing) for the
+    block; closing the descriptor releases it, also when the process
+    dies."""
+    fd = os.open(path, os.O_RDWR | os.O_CREAT, 0o644)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        os.close(fd)
+
+
+def _decode_reference(db_dir, src, use_mtbl, taxonomy, paths, sig_path, sig,
+                      window_bytes):
+    """The windowed decode of import_reference_format into `paths`
+    (through their *.new names), then `sig` into sig_path, each
+    published by a rename."""
     from numpy.lib.format import open_memmap
 
     win = max(int(window_bytes) // 2, 1 << 16)   # u16 chunks per pass
@@ -474,12 +518,9 @@ def import_reference_format(db_dir, taxonomy: Taxonomy, meta=None,
     del values, taxids, species
     for a, b in zip(fresh, paths):
         os.replace(a, b)
-    with open(sig_path, "w") as f:
+    with open(sig_path + ".new", "w") as f:
         f.write(sig)
-    index = _mapped_index(paths, taxonomy, meta)
-    if not kept:
-        shutil.rmtree(cache, ignore_errors=True)
-    return index
+    os.replace(sig_path + ".new", sig_path)
 
 
 def _read_text(path):

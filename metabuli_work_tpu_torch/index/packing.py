@@ -23,6 +23,7 @@ probe (ops/match_torch.py) masks after each right shift accordingly.
 import hashlib
 import json
 import os
+import shutil
 import tempfile
 
 import numpy as np
@@ -291,24 +292,28 @@ def _key(parts, geom: str) -> str:
 def _cached(parts, geom, make):
     """(arrays, meta) of the cache entry for (parts, geom): a dict of
     numpy arrays, mapped copy-on-write from the entry's .npy files, and a
-    JSON-able dict — or make()'s, saved as that entry first (published
-    atomically; a failure to write only skips the cache)."""
+    JSON-able dict — or make()'s, saved as that entry first.  The entry
+    is written into a .tmp_* directory and published by a rename; an
+    entry that exists but cannot be read is moved aside, replaced and
+    deleted.  A process that loses the race to publish (the entry is
+    there by then: the same bytes) or fails to write keeps make()'s
+    arrays for this run and deletes its copy, so nothing is left
+    behind."""
     root = cache_root()
     if root is None:
         return make()
     entry = os.path.join(root, _key(parts, geom))
-    meta_p = os.path.join(entry, "meta.json")
-    if os.path.exists(meta_p):
-        try:
-            with open(meta_p) as f:
-                meta = json.load(f)
-            arrays = {k: np.load(os.path.join(entry, f"{k}.npy"),
-                                 mmap_mode="c") for k in meta.pop("arrays")}
-            return arrays, meta
-        except (OSError, ValueError, KeyError):
-            pass    # unreadable entry: fall through and make it again
+    try:
+        with open(os.path.join(entry, "meta.json")) as f:
+            meta = json.load(f)
+        arrays = {k: np.load(os.path.join(entry, f"{k}.npy"),
+                             mmap_mode="c") for k in meta.pop("arrays")}
+        return arrays, meta
+    except (OSError, ValueError, KeyError):
+        damaged = os.path.lexists(entry)    # there but unreadable
 
     arrays, meta = make()
+    tmp = aside = None
     try:
         os.makedirs(root, exist_ok=True)
         tmp = tempfile.mkdtemp(dir=root, prefix=".tmp_")
@@ -316,9 +321,16 @@ def _cached(parts, geom, make):
             np.save(os.path.join(tmp, f"{k}.npy"), a)
         with open(os.path.join(tmp, "meta.json"), "w") as f:
             json.dump({**meta, "arrays": list(arrays)}, f)
-        os.replace(tmp, entry)   # atomic publish; loser of a race loses
+        if damaged:
+            aside = tempfile.mkdtemp(dir=root, prefix=".tmp_")
+            os.replace(entry, aside)
+        os.replace(tmp, entry)   # fails when another process published
     except OSError:
         pass
+    finally:
+        for d in (tmp, aside):   # tmp is gone once published
+            if d is not None:
+                shutil.rmtree(d, ignore_errors=True)
     return arrays, meta
 
 

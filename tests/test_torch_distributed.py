@@ -5,6 +5,7 @@ same input through the mesh path; the merged per-read records (f32 score
 bits and tax_cnt included) equal the port's single-process run and the
 JAX package's, and each read is scored by exactly one process."""
 
+import glob
 import json
 import os
 import re
@@ -19,7 +20,8 @@ from metabuli_work_tpu.classify.pipeline import ClassifyParams as JParams
 from metabuli_work_tpu.index.builder import build_database as jbuild
 from metabuli_work_tpu_torch.classify.pipeline import Classifier, ClassifyParams
 
-from torch_port_db import build_db, simulate_reads, write_inputs, write_reads
+from torch_port_db import (build_db, simulate_reads, write_inputs, write_reads,
+                           write_reference_copy)
 from torch_port_db import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -60,6 +62,30 @@ def test_two_process_classify_equals_single(tmp_path):
 
     merged, _ = _two_processes(root, db, path)
     assert merged == want
+
+
+def test_two_process_classify_of_a_cold_reference_db(tmp_path, monkeypatch):
+    """The two processes on a reference-format (diffIdx) copy of the DB
+    whose import cache is cold, with an empty pack cache: both import
+    and pack it at once.  The merged records equal the single-device run
+    on the native DB, and neither cache keeps a temporary file."""
+    root = str(tmp_path)
+    db = build_db(jbuild, root, "db", syncmer=True)
+    ref = write_reference_copy(db, os.path.join(root, "ref"), "diffIdx")
+    genomes, _ = write_inputs(root)
+    reads, _ = simulate_reads(genomes, 23, seed=74)
+    path = os.path.join(root, "reads.fna")
+    write_reads(path, reads)
+    packs = os.path.join(root, "packs")
+    monkeypatch.setenv("METABULI_PACK_CACHE", packs)
+
+    merged, _ = _two_processes(root, ref, path)
+    want = _records(Classifier(db, ClassifyParams(**PARAMS),
+                               device="cpu").classify_file(path))
+    assert sum(v[0] for v in want.values()) >= 18
+    assert merged == want
+    assert not glob.glob(os.path.join(ref, ".import_cache", "*.new"))
+    assert not glob.glob(os.path.join(packs, ".tmp_*"))
 
 
 def _two_processes(root, db, path, seq_mode=1):

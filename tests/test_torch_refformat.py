@@ -25,7 +25,7 @@ from metabuli_work_tpu_torch.index import format as tformat
 from metabuli_work_tpu_torch.index.builder import build_database as tbuild
 
 from torch_port_db import (simulate_reads, write_inputs, write_reads,
-                           write_taxonomy_blob)
+                           write_reference_copy, write_taxonomy_blob)
 from torch_port_db import one_torch_thread  # noqa: F401  (autouse)
 
 PARAMS = dict(seq_mode=1, min_score=0.15, min_sp_score=0.5, batch_size=8)
@@ -50,22 +50,11 @@ def dbs(tmp_path_factory):
     reads, _ = simulate_reads(genomes, 22, seed=5)
     path = os.path.join(root, "reads.fna")
     write_reads(path, reads)
-    index = tformat.load_index(dirs["tdb"])
     for layout in ("diffIdx", "mtbl"):
         for who in ("t", "j"):
-            d = os.path.join(root, f"{who}ref_{layout}")
-            os.makedirs(d)
-            shutil.copy(os.path.join(dirs["tdb"], "db.parameters"), d)
-            write_taxonomy_blob(os.path.join(d, "taxonomyDB"),
-                                index.taxonomy)
-            if layout == "diffIdx":
-                for f in ("diffIdx", "info", "split"):
-                    shutil.copy(os.path.join(dirs["tdb"], f), d)
-            else:
-                tdelta.encode_metamer_deltas(
-                    index.values, index.taxids).astype("<u2").tofile(
-                        os.path.join(d, "deltaIdx.mtbl"))
-            dirs[f"{who}ref_{layout}"] = d
+            dirs[f"{who}ref_{layout}"] = write_reference_copy(
+                dirs["tdb"], os.path.join(root, f"{who}ref_{layout}"),
+                layout)
     return root, dirs, path
 
 

@@ -195,6 +195,27 @@ def write_taxonomy_blob(path, tax):
         f.write(chars)
 
 
+def write_reference_copy(native, d, layout):
+    """The native DB directory `native` written in d as a DB of the
+    reference binary: its db.parameters, a taxonomyDB blob of its
+    taxonomy, no db.meta.json, and diffIdx/info/split (layout "diffIdx",
+    the torch package's export) or the 96-bit deltaIdx.mtbl stream
+    (layout "mtbl").  Returns d."""
+    from metabuli_work_tpu_torch.index import format as tformat
+    from metabuli_work_tpu_torch.index.delta import encode_metamer_deltas
+
+    index = tformat.load_index(native)
+    os.makedirs(d)
+    shutil.copy(os.path.join(native, "db.parameters"), d)
+    write_taxonomy_blob(os.path.join(d, "taxonomyDB"), index.taxonomy)
+    if layout == "diffIdx":
+        tformat.export_reference_format(d, index)
+    else:
+        encode_metamer_deltas(index.values, index.taxids).astype(
+            "<u2").tofile(os.path.join(d, "deltaIdx.mtbl"))
+    return d
+
+
 _STOPS = (b"TAA", b"TAG", b"TGA")
 _SENSE = np.array([[a, b, c] for a in b"ACGT" for b in b"ACGT"
                    for c in b"ACGT" if bytes((a, b, c)) not in _STOPS],
