@@ -167,6 +167,18 @@
      must be the cap > 32 kernel's; the first 256 reads equal to the
      CPU run's (started from the knobs the card's retry ladder settled
      at);
+   after those, so that every earlier path and phase runs as before it:
+   - api single-end, api paired: Classifier.classify_batch of the first
+     4,096 single-end reads as strings (4 calls of 1,024) and of the
+     first 2,048 pairs (seqs2), each after a one-batch warm-up; every
+     read equal (tax_cnt and top_species included) to drive_batches of
+     the same padded batches on a second classifier warmed up alike,
+     both ending at the same retry knobs; reads/s of both; then
+     models/flagship.classify_step on synthetic_db(4096) /
+     synthetic_reads(32, 150) and on an index that holds some of the
+     reads' own metamers, plain and syncmer, on the card (from the
+     numpy arrays with no device given, and from reads on the card):
+     every output equal to the same call on the CPU (device="cpu");
    For every path it checks that the plain DP never ran on the card,
    that every launch at cap <= 32 went to the warp variant, that >= 95%
    of reads land on their source species or genus, and that a subset
@@ -194,7 +206,8 @@ the reader-to-cli phases.  A phase waits for
 what it reads and prints the seconds the preparation took.  The CPU runs
 of the long-read and the high-cap CPU checks run the same way, while the
 card runs the paths after them; each is held against the card's results
-once it is done.
+once it is done, the high-cap one before the api phase, so that no
+preparation process runs beside that phase.
 
 With --profile every path is driven once more under torch.profiler (CPU
 + CUDA activities) after its checks: the sum of all device kernel and
@@ -235,8 +248,8 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
 from torch_dp_cases import (EDGES, GRID, HIGH_CAP, LONG_W,  # noqa: E402
-                            edge_case, flipped_inputs, high_cap_case,
-                            overflow_case, random_case)
+                            db_with_read_kmers, edge_case, flipped_inputs,
+                            high_cap_case, overflow_case, random_case)
 
 N_GENOMES = 8
 GENOME_LEN = 4_000_000
@@ -730,10 +743,11 @@ def check_launches(name, r, dp_cuda):
     for cap, W, c5 in calls:
         k = f"cap {cap} W {W} {'5' if c5 else '7'}col"
         by_cap[k] = by_cap.get(k, 0) + 1
+    read = f"read with the {r['reader']} reader" if r["reader"] \
+        else "reads given in memory"
     print(f"{name}: path DP launches by shape {by_cap}; warp variant "
           f"{counts['warp']}, block variant {counts['block']}; "
-          f"{r['dispatches']} dispatches; read with the {r['reader']} "
-          f"reader")
+          f"{r['dispatches']} dispatches; {read}")
     assert counts["warp"] == n_small, \
         f"{name}: a launch at cap <= 32 did not go to the warp variant"
     assert counts["block"] == r["launches"] - n_small
@@ -1918,6 +1932,8 @@ def uniref_phase(fa, seed, card):
 
 # ------------------------------------------------ high-cap single-end
 HIGHCAP = "high-cap single-end"
+# the retry ladder's sticky knobs
+KNOBS = ("cap", "_path_block", "_path_width", "_win_frac")
 HC_SPECIES = (44, 4)             # species of the high-cap DB's two genera
 HC_LEN = 512_000                 # bases a genome
 HC_DIV = 0.01                    # each species' divergence from its genus
@@ -2031,11 +2047,10 @@ def highcap_phase(dp_cuda, classifier_of, fa, runs, card, prepped, prep,
     # the CPU run starts from the knobs the card's retry ladder settled
     # at, so it takes one dispatch a batch (its plain DP at cap 84 is
     # minutes a climb; the long-read CPU check climbs the ladder itself),
-    # in a preparation process while the card runs the timings
+    # in a preparation process; the api phase waits for it
     prep.start((f"{HIGHCAP} cpu", prep_cpu_classify, (
         "highcap", cpu_reads, dict(seq_mode=1, batch_size=BATCH, **SHORT),
-        {k: getattr(clf, k)
-         for k in ("cap", "_path_block", "_path_width", "_win_frac")}, 4)))
+        {k: getattr(clf, k) for k in KNOBS}, 4)))
     return r["results"][:HC_CPU]
 
 
@@ -2044,10 +2059,110 @@ def highcap_cpu_check(prep, gpu_results):
     got = prep.result(f"{HIGHCAP} cpu")
     cpu_check_tuples(HIGHCAP, gpu_results, got["tuples"])
     print(f"{HIGHCAP} CPU check took {got['seconds']:.1f} s in a preparation "
-          f"process (4 threads) while the card ran the timings, at cap "
+          f"process (4 threads; waited {got['waited']:.1f} s for it), at cap "
           f"{got['cap']}, emission block {got['path_block']}, "
           f"{got['retries']} retries")
 
+
+N_API = 4096                     # single-end reads of the api phase
+N_API_PAIRS = 2048               # its pairs
+
+
+def api_phase(dp_cuda, classifier, runs, reads, src, m1, m2, src2, card):
+    """The in-memory API on the card.  Classifier.classify_batch of the
+    first N_API single-end reads as strings, BATCH a call, then of the
+    first N_API_PAIRS pairs (seqs2), each after a one-batch warm-up:
+    every read equal (tax_cnt and top_species included) to drive_batches
+    of the same padded batches on a second classifier warmed up alike,
+    which ends at the same retry knobs; the path DP launched once per
+    mate per call.  Then models/flagship.classify_step on synthetic_db /
+    synthetic_reads (and on an index that holds some of the reads' own
+    metamers) on the card, from the numpy arrays with no device given
+    and from reads on the card, equal to the same call with
+    device="cpu"."""
+    from metabuli_work_tpu_torch.models import flagship
+
+    for name, mode, n, s_, unit, mates in (
+            ("api single-end", 1, N_API, src, "reads", (reads,)),
+            ("api paired", 2, N_API_PAIRS, src2, "pairs", (m1, m2))):
+        seqs = [[r.tobytes().decode() for r in m[:n]] for m in mates]
+        names = [f"a{i}" for i in range(n)]
+        calls = [(names[b:b + BATCH], *(s[b:b + BATCH] for s in seqs))
+                 for b in range(0, n, BATCH)]
+        clf = classifier(seq_mode=mode, batch_size=BATCH, **SHORT)
+        ref_clf = classifier(seq_mode=mode, batch_size=BATCH, **SHORT)
+
+        def padded(c):
+            """The batches classify_batch pads, as drive_batches takes
+            them."""
+            for nm, *ss in c:
+                rows = [x for s in ss for x in ref_clf._pad_batch(s)]
+                yield (nm, *rows, *((None, None) if len(ss) == 1 else ()))
+
+        clf.classify_batch(*calls[0])                     # warm-ups
+        ref_clf.drive_batches(padded(calls[:1]))
+        r = runs[name] = drive(dp_cuda, clf, lambda: [
+            q for c in calls for q in clf.classify_batch(*c)])
+        assert r["launches"] == len(mates) * r["dispatches"] > 0, \
+            f"{name}: {r['launches']} launches for {r['dispatches']} " \
+            f"dispatched batches"
+        assert r["dispatches"] >= len(calls)
+        check_path(name, r, n, s_[:n], dp_cuda, card, unit=unit)
+        stage_table(name, clf, card)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = ref_clf.drive_batches(padded(calls))
+        torch.cuda.synchronize()
+        t_ref = time.perf_counter() - t0
+        same_as(name, "drive_batches of the same batches (tax_cnt and "
+                "top_species included)", full_tuples(r["results"]),
+                full_tuples(ref))
+        knobs = {k: getattr(clf, k) for k in KNOBS}
+        assert knobs == {k: getattr(ref_clf, k) for k in KNOBS}, \
+            (knobs, {k: getattr(ref_clf, k) for k in KNOBS})
+        print(f"{name}: {n / r['dt']:.1f} {unit}/s through classify_batch "
+              f"({len(calls)} calls of {BATCH}, strings padded on the host "
+              f"in each call) against {n / t_ref:.1f} {unit}/s through "
+              f"drive_batches of the padded batches; both end at knobs "
+              f"{knobs}; on {card}")
+        clf = ref_clf = None
+        torch.cuda.empty_cache()
+
+    reads_s, lens_s = flagship.synthetic_reads(32, 150)
+    synth = flagship.synthetic_db(4096)
+    dbs = (("synthetic_db", synth),
+           ("an index with the reads' metamers",
+            db_with_read_kmers(synth[0], reads_s, lens_s,
+                               np.random.default_rng(73))))
+    for (what, db), syncmer in [(d, s) for d in dbs for s in (False, True)]:
+        kw = dict(cap=8, syncmer=syncmer)
+        cpu = flagship.classify_step(reads_s, lens_s, *db, device="cpu",
+                                     **kw)
+        r_g, l_g = (torch.from_numpy(a).cuda() for a in (reads_s, lens_s))
+        for how, gpu in (
+                ("numpy inputs, no device given",
+                 flagship.classify_step(reads_s, lens_s, *db, **kw)),
+                ("reads on the card",
+                 flagship.classify_step(r_g, l_g, *db, **kw))):
+            assert set(gpu) == set(cpu)
+            for k, v in cpu.items():
+                assert v.device.type == "cpu", k
+                assert gpu[k].device.type == "cuda", (how, k)
+                assert torch.equal(gpu[k].cpu(), v), \
+                    f"classify_step {what}, syncmer={syncmer}, {how}: " \
+                    f"{k} differs"
+        # the index on the card once, for the timing (u64 values as the
+        # int64 of the same bits, as classify_step moves numpy inputs)
+        db_g = [torch.from_numpy(a.view(np.int64) if a.dtype == np.uint64
+                                 else a).cuda() for a in db]
+        ms = time_cuda(lambda: flagship.classify_step(r_g, l_g, *db_g, **kw),
+                       20)
+        print(f"api classify_step on {what} ({len(db[0])} entries), "
+              f"syncmer={syncmer}, 32 x 150 reads, cap 8: every output on "
+              f"the card, from numpy inputs with no device given and from "
+              f"reads on the card, equal to the CPU run's "
+              f"({int(cpu['sel'].sum())} selected "
+              f"candidates); {ms:.3f} ms a call on {card}")
 
 
 # ------------------------------------------------ host preparation
@@ -2975,6 +3090,20 @@ def smoke(prep, prep_dir, profiled, seed):
 
     lap("high-cap single-end")
 
+    # the high-cap CPU run ends before the api phase, so that no
+    # preparation process runs beside it
+    highcap_cpu_check(prep, hc_check)
+    lap("high-cap CPU check")
+
+    # ---- the in-memory API: classify_batch against drive_batches, and
+    # the standalone classify_step (after every earlier path and phase)
+    t0 = time.perf_counter()
+    api_phase(dp_cuda, classifier, runs, reads, src, m1, m2, src2, card)
+    print(f"phase seconds: api {time.perf_counter() - t0:.1f}")
+    torch.cuda.empty_cache()
+
+    lap("api")
+
     # ------------------------------- main-path parity and kernel timings
     # the plain version runs once per long-read shape (seconds a call)
     timed = {name: time_shapes(name, r, dp_cuda, card, max_err,
@@ -3046,7 +3175,6 @@ def smoke(prep, prep_dir, profiled, seed):
                        if dp_cuda.variant(k[0]) == which],
         })
     assert kernels, "no path-DP kernel was launched on any path"
-    highcap_cpu_check(prep, hc_check)
     prep.close()
     lap("main-path parity and timings")
     total = laps[-1][1] - laps[0][1]

@@ -26,7 +26,8 @@ runs the whole scorer on them (_dispatch_batch_host /
 _finish_batch_host).  Paired reads (--seq-mode 2) ride either flow with
 mate 2 as a second part.  Long reads (--seq-mode 3) ride the same
 batches up to LONG_ROW_CAP bases; longer ones are redone whole from
-overlapping chunks through the host-match step (_classify_long_read).
+overlapping chunks through the host-match step (_classify_long_read),
+and so are those of an unpaired batch of classify_batch_arrays.
 
 With a device-memory budget (--hbm-gb) smaller than twice the packed
 index, the index stays on the host, cut into ranges at AA boundaries,
@@ -602,6 +603,46 @@ class Classifier:
                 self._width_lo_streak = 0
         else:
             self._width_lo_streak = 0
+
+    def classify_batch(self, names, seqs1, seqs2=None):
+        """Classify one batch of string reads: pads (and masks) them as
+        the Python reader's batches are, then classify_batch_arrays.
+        Mate 2 is used only when some entry of seqs2 is not None."""
+        a1, l1 = self._pad_batch(seqs1)
+        a2 = l2 = None
+        if seqs2 is not None and any(s is not None for s in seqs2):
+            a2, l2 = self._pad_batch(seqs2)
+        return self.classify_batch_arrays(names, a1, l1, a2, l2)
+
+    def classify_batch_arrays(self, names, a1, l1, a2=None, l2=None):
+        """One batch of padded uint8 rows (a2/l2 None unpaired) through the
+        halves drive_batches runs, so the flow, the retry ladder and its
+        sticky knobs, streaming and the mesh behave as for a batch of
+        drive_batches.  Returns the QueryRecords of the reads this
+        process reports (all of them in one process), in input order.
+
+        A read of an unpaired batch beyond LONG_ROW_CAP, in --seq-mode 1
+        as in 3, leaves the batch (its length zeroed) and is redone from
+        its row by the chunk pass, as classify_file does under
+        --seq-mode 3: the batch pass is not widened to it, and the chunk
+        pass gives what the read classified whole gives.  Pairs are
+        classified whole in their rows, as classify_file does."""
+        l1 = np.asarray(l1)
+        over = [] if a2 is not None else \
+            np.nonzero(l1 > self.LONG_ROW_CAP)[0].tolist()
+        if over:
+            rows = {i: a1[i, :l1[i]] for i in over}
+            l1 = l1.copy()
+            l1[over] = 0
+        results = self._finish_complete(self._finish_partial(
+            self._dispatch_batch(names, a1, l1, a2, l2)))
+        if over:
+            at = {r: k for k, r in enumerate(self._local_reads(len(names)))}
+            for i in over:
+                if i in at:
+                    results[at[i]] = self._classify_long_row(names[i],
+                                                             rows[i])
+        return results
 
     # -- async halves: dispatch launches device work, finish pulls + scores
     def _dispatch_batch(self, names, a1, l1, a2=None, l2=None, cap=None):
@@ -1285,7 +1326,13 @@ class Classifier:
         """
         if self.params.mask_mode:
             seq = mask_ops.mask_low_complexity(seq, self.params.mask_prob)
-        L = len(seq)
+        return self._classify_long_row(
+            name, np.frombuffer(seq.encode("ascii", "replace"), np.uint8))
+
+    def _classify_long_row(self, name: str, data):
+        """_classify_long_read of one read's bases as uint8 (masked
+        already, where masking is on)."""
+        L = len(data)
         CH, OV = self._LONG_CHUNK, self._LONG_OVERLAP
         step = CH - OV
         starts = list(range(0, max(L - OV, 1), step))
@@ -1295,7 +1342,6 @@ class Classifier:
         own_hi = np.array([starts[i + 1] + 21 if i + 1 < n_ch else L
                            for i in range(n_ch)], np.int64)
         used_g = L - {0: 3, 1: 4, 2: 2}[L % 3]
-        data = np.frombuffer(seq.encode("ascii", "replace"), np.uint8)
 
         with self.timer.stage("long_probe"):
             all_m = self._long_read_matches(data, L, starts, own_lo, own_hi,

@@ -17,10 +17,16 @@ fused_step is the device half of the host-match flow (min_cons_cnt < 2,
 and the chunks of reads beyond the long-read row cap): it returns the
 compacted raw matches and the host runs the whole scorer on them.
 reads2=None means unpaired everywhere.
+
+classify_step is the standalone step of the compile checks and dry runs
+(extract, flatten and the raw-array probe, returning the per-k-mer match
+tensors), and synthetic_db / synthetic_reads make its seeded inputs.
 """
 
+import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops import (assign_torch, compact_torch, dp_cuda, dp_torch,
                    encode_torch, match_torch)
 
@@ -70,6 +76,50 @@ def fused_step(reads1, lens1, reads2, lens2, db_values, db_taxids,
                                   bucket_steps=bucket_steps)
     packed, count = compact_torch.compact_and_sort(out, qp, qf, qs)
     return packed, count, out["overflow"]
+
+
+def _tensor_on(a, device):
+    """A tensor on `device`: tensors move, numpy arrays are wrapped
+    (uint64 metamers as the int64 of the same bits)."""
+    if torch.is_tensor(a):
+        return a.to(device)
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint64:
+        a = a.view(np.int64)
+    return torch.from_numpy(a).to(device)
+
+
+def classify_step(reads, lengths, db_values, db_taxids, db_species,
+                  cap: int = 16, kmer_format: int = 2,
+                  syncmer: bool = False, smer_len: int = 5, *,
+                  device=None):
+    """reads uint8 [B, L], lengths int32 [B] -> match tensors: 6-frame
+    extraction, flatten, and the raw-array probe of the sorted DB arrays
+    (db_values u64 metamer bits, db_taxids / db_species int32).
+
+    Returns match_torch.match_kmers' query-major dict plus the flat
+    query annotation pos, frame and seq_id (1-based read number).  Runs
+    on `device` when it is given, else on the device of `reads` when
+    that is a tensor, else (numpy inputs, as synthetic_db's and
+    synthetic_reads' are) on the card, raising without one unless
+    device="cpu"; every input is moved there first."""
+    dev = reads.device if device is None and torch.is_tensor(reads) \
+        else resolve_device(device)
+    reads, lengths, db_values, db_taxids, db_species = (
+        _tensor_on(a, dev)
+        for a in (reads, lengths, db_values, db_taxids, db_species))
+    kmers, pos, valid = encode_torch.extract_batch(
+        reads, lengths, syncmer=syncmer, smer_len=smer_len)
+    b = reads.shape[0]
+    sids = torch.arange(1, b + 1, dtype=torch.int32, device=dev)
+    qk, qp, qf, qs, qv = encode_torch.flatten_batch(kmers, pos, valid, sids)
+    out = match_torch.match_kmers(qk, qf, qv, db_values, db_taxids,
+                                  db_species, cap=cap,
+                                  kmer_format=kmer_format)
+    out["pos"] = qp
+    out["frame"] = qf
+    out["seq_id"] = qs
+    return out
 
 
 def extract_queries_step(reads1, lens1, reads2=None, lens2=None, ra1=None,
@@ -407,3 +457,28 @@ def redundancy_counts(sel, species, ham, ef, q_pos, q_sids,
     packed, count = dp_torch.compact_columns(cols, gvalid, out_width=out_w)
     stats = torch.stack([count, sel2.sum().to(i32)])
     return torch.cat([stats[:, None], packed], 1)
+
+
+def synthetic_db(n_kmers=4096, n_species=8, seed=0):
+    """Small synthetic sorted index for compile checks and dry runs:
+    (values uint64, taxids int32, species int32) numpy arrays, the JAX
+    package's for the same arguments."""
+    rng = np.random.default_rng(seed)
+    aa = rng.integers(0, 2**40, size=n_kmers, dtype=np.uint64)
+    dna = rng.integers(0, 2**24, size=n_kmers, dtype=np.uint64)
+    values = np.unique((aa << np.uint64(24)) | dna)
+    taxids = rng.integers(2, 2 + n_species * 4,
+                          size=len(values)).astype(np.int32)
+    species = (2 + (taxids - 2) % n_species).astype(np.int32)
+    return values, taxids, species
+
+
+def synthetic_reads(batch=32, length=150, seed=1):
+    """Random ACGT reads for classify_step: (reads uint8 [batch, length],
+    lengths int32 [batch]) numpy arrays, the JAX package's for the same
+    arguments."""
+    rng = np.random.default_rng(seed)
+    reads = rng.choice(np.frombuffer(b"ACGT", dtype=np.uint8),
+                       size=(batch, length))
+    lengths = np.full(batch, length, dtype=np.int32)
+    return reads, lengths

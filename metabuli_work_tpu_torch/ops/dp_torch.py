@@ -239,6 +239,28 @@ def _path_dp_ascending(sel, species, dna, rh, ham, pos, min_depth,
     }
 
 
+def pack_paths(out):
+    """Flatten path_dp output into 7 int32 columns [7, T*cap*G] and the
+    emit flags [T*cap*G], unblocked: (cols, sel).
+
+    Columns: 0 g (read*6+frame), 1 species, 2 start, 3 end, 4 score (f32
+    bits), 5 hamming<<16 | rh_start, 6 rh_end; flat order (t, j, g), as
+    the reference emits paths after the host's (qid, species, frame,
+    end) sort (within a tie class only the candidate lane j varies)."""
+    T, cap, G = out["emit"].shape
+    flat = lambda a: a.reshape(T * cap * G).to(torch.int32)
+    g_ids = torch.arange(G, dtype=torch.int32,
+                         device=out["emit"].device).expand(T, cap, G)
+    cols = torch.stack([
+        flat(g_ids), flat(out["species"]), flat(out["start"]),
+        flat(out["end"]),
+        flat(out["score"].to(torch.float32).view(torch.int32)),
+        flat((out["hamming"].to(torch.int32) << 16)
+             | out["rh_start"].to(torch.int32)),
+        flat(out["rh_end"])])
+    return cols, out["emit"].reshape(T * cap * G)
+
+
 def pack_paths_blocked(out, block_w: int, compact5: bool = False):
     """Per-lane block compaction of path_dp output: [T, cap, G] ->
     (cols [C, block_w*G], valid [block_w*G], blk_over).

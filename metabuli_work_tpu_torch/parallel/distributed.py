@@ -35,21 +35,25 @@ from ..device import resolve_device
 from .sharding import Mesh, visible_cards
 
 
-def init_distributed(coordinator=None, num_processes=None, process_id=None):
-    """Join the process group (gloo).  coordinator is "host:port";
-    the arguments default to MASTER_ADDR:MASTER_PORT, WORLD_SIZE and
-    RANK.  Call once per process; returns (rank, world size)."""
+def init_distributed(coordinator_address=None, num_processes=None,
+                     process_id=None):
+    """Join the process group (gloo).  coordinator_address is
+    "host:port"; the arguments default to MASTER_ADDR:MASTER_PORT,
+    WORLD_SIZE and RANK.  Call once per process; returns (rank, world
+    size)."""
     env = os.environ
     try:
-        if coordinator is None:
-            coordinator = f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
+        if coordinator_address is None:
+            coordinator_address = \
+                f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
         world = int(num_processes if num_processes is not None
                     else env["WORLD_SIZE"])
         rank = int(process_id if process_id is not None else env["RANK"])
     except KeyError as e:
         raise ValueError(f"init_distributed: pass the argument or set {e}") \
             from e
-    dist.init_process_group("gloo", init_method=f"tcp://{coordinator}",
+    dist.init_process_group("gloo",
+                            init_method=f"tcp://{coordinator_address}",
                             world_size=world, rank=rank)
     return rank, world
 

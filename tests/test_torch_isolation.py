@@ -1,6 +1,7 @@
 """The torch package stands alone: no module of it (parallel/ included),
-and neither chip_smoke.py nor the distributed test's worker, imports jax
-or the JAX package; and its entry points refuse to run without a card
+and neither chip_smoke.py, the shared test inputs it imports
+(torch_dp_cases.py) nor the distributed test's worker, imports jax or
+the JAX package; and its entry points refuse to run without a card
 unless the CPU is asked for."""
 
 import ast
@@ -17,7 +18,8 @@ PKG = os.path.join(REPO, "metabuli_work_tpu_torch")
 
 def _sources():
     out = [os.path.join(REPO, "chip_smoke.py"),
-           os.path.join(REPO, "tests", "torch_distributed_worker.py")]
+           os.path.join(REPO, "tests", "torch_distributed_worker.py"),
+           os.path.join(REPO, "tests", "torch_dp_cases.py")]
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return out

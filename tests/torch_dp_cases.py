@@ -1,11 +1,14 @@
 """Path-DP test inputs and runner shared by the CPU tests
-(tests/test_torch_dp.py) and the card test (tests/test_torch_dp_cuda.py);
-no JAX import, so the card test runs where JAX is not installed."""
+(tests/test_torch_dp.py) and the card test (tests/test_torch_dp_cuda.py),
+and the standalone classify_step's index with the reads' own metamers
+(tests/test_torch_api.py); chip_smoke.py uses both.  No JAX and no
+pytest import, so the card test and chip_smoke.py run where neither is
+installed."""
 
 import numpy as np
 import torch
 
-from metabuli_work_tpu_torch.ops import dp_cuda
+from metabuli_work_tpu_torch.ops import dp_cuda, encode_torch
 
 I32 = np.int32
 # (dyn_gap, max_shift, kmer_format): the JAX package's parity grid
@@ -174,3 +177,19 @@ def torch_blocked(case, min_cons, min_cons_euk, S, kf, dyn_gap, block_w,
         *ins, min_cons=min_cons, min_cons_euk=min_cons_euk, max_shift=S,
         kmer_format=kf, dyn_gap=dyn_gap, block_w=block_w, compact5=compact5)
     return cols.cpu().numpy(), valid.cpu().numpy(), int(over)
+
+
+def db_with_read_kmers(values, reads, lengths, rng):
+    """Sorted DB arrays (values uint64, taxids, species int32) for the
+    standalone classify_step: `values` (synthetic_db's) plus a third of
+    the reads' own metamers and another third with their DNA part's low
+    bit flipped (no exact candidate, one a codon away), with random
+    taxids.  Random reads match nothing in synthetic_db alone."""
+    k, _, v = encode_torch.extract_batch(torch.from_numpy(reads),
+                                         torch.from_numpy(lengths))
+    own = k[v].numpy().view(np.uint64)
+    part = rng.integers(0, 3, size=len(own))
+    values = np.unique(np.concatenate([values, own[part == 0],
+                                       own[part == 1] ^ np.uint64(1)]))
+    taxids = rng.integers(2, 34, size=len(values)).astype(np.int32)
+    return values, taxids, (2 + (taxids - 2) % 8).astype(np.int32)
