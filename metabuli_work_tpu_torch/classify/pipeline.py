@@ -68,11 +68,27 @@ of the host-scoring ladder to stderr.
 classify_file reads with the native C++ batch reader
 (io/native_reader.py) when its library builds, else with the Python
 reader (io/fasta.py); Classifier.reader names the one that ran.
+
+Tracing: every span is opened through the classifier's current
+`timer.stage(name)` (utils/timing.StageTimer, which lists the spans),
+looked up when the span opens, so a timer put in its place after
+construction sees them all.  Set-up: `db_load`, `layout`, `upload`
+(their seconds also kept in Classifier.setup_times).  A batch:
+`input` or `pad`, then `dispatch` with `prep`, `extract`, `probe`,
+`paths` (and `assign` on the device-assign flow) nested in it, on the
+resident, streamed, mesh and device-assign flows alike (the host-match
+flow has `prep`, `extract` and `probe`); then the finish's stages.
+A hook on Python's garbage collector, registered when the classifier is
+made and removed when it is freed, opens a `gc` span around each
+collection.  While a torch profiler runs, each span is also a
+record_function range "stage:<name>".
 """
 
+import gc
 import math
 import os
 import sys
+import weakref
 from collections import deque
 from dataclasses import dataclass
 from typing import Iterator, List
@@ -271,12 +287,25 @@ class _FullReads:
         return self._seq
 
 
+def _drop_gc_hook(hook):
+    """Takes a freed classifier's hook off Python's garbage collector."""
+    try:
+        gc.callbacks.remove(hook)
+    except ValueError:
+        pass
+
+
 class Classifier:
+    # the set-up spans, whose seconds Classifier.setup_times keeps
+    SETUP_STAGES = ("db_load", "layout", "upload")
+
     def __init__(self, db_dir, params: ClassifyParams, mesh=None,
                  device=None):
         self.db_dir = db_dir
-        self._init_from_index(load_index(db_dir), params, mesh=mesh,
-                              device=device)
+        self._start_tracing()
+        with self.timer.stage("db_load"):
+            index = load_index(db_dir)
+        self._init_from_index(index, params, mesh=mesh, device=device)
 
     @classmethod
     def from_memory(cls, index: KmerIndex, params: ClassifyParams,
@@ -284,8 +313,32 @@ class Classifier:
         """Wire a Classifier around an in-memory index (no disk round-trip)."""
         self = cls.__new__(cls)
         self.db_dir = None
+        self._start_tracing()
         self._init_from_index(index, params, mesh=mesh, device=device)
         return self
+
+    def _start_tracing(self):
+        """A fresh StageTimer, and one hook on Python's garbage collector
+        that opens a `gc` span on the classifier's current timer when a
+        collection starts and closes it when the collection stops.  The
+        hook holds the classifier weakly and is taken off gc.callbacks
+        when the classifier is freed."""
+        self.timer = StageTimer()
+        ref = weakref.ref(self)
+        open_spans = []
+
+        def hook(phase, info):
+            if phase == "start":
+                clf = ref()
+                if clf is not None:
+                    span = clf.timer.stage("gc")
+                    span.__enter__()
+                    open_spans.append(span)
+            elif open_spans:
+                open_spans.pop().__exit__(None, None, None)
+
+        gc.callbacks.append(hook)
+        weakref.finalize(self, _drop_gc_hook, hook)
 
     def _init_from_index(self, index: KmerIndex, params: ClassifyParams,
                          mesh=None, device=None):
@@ -349,7 +402,6 @@ class Classifier:
             em=params.em,
         )
         self.total_match_cnt = 0
-        self.timer = StageTimer()
         self._match_state = None        # host-match arrays, at first use
         self.reader = None              # "native" | "python", last file
         self.full_retries = {}          # device-assign retries by rung
@@ -370,6 +422,8 @@ class Classifier:
         # pass the anchor rule on random sequence)
         self._win_frac = 184 if self.syncmer else 256
         self._init_device_dp()
+        self.setup_times = {n: self.timer.totals[n]
+                            for n in self.SETUP_STAGES if self.timer.counts[n]}
 
     def _init_device_dp(self):
         """Index (resident on self.device, or host ranges when streaming)
@@ -402,23 +456,26 @@ class Classifier:
                     "DB-range streaming requires min_cons_cnt >= 2 "
                     "(the device path-DP flow)")
             return
-        n = self.taxonomy.num_nodes()
-        euk = self.taxonomy.eukaryota_id()
-        if euk:
-            mask = np.asarray(self.taxonomy.is_ancestor(euk, np.arange(n)))
-        else:
-            mask = np.zeros(n, dtype=bool)
-        # euk-ness rides in bit 30 of the species payload
-        sp = self.index.species.astype(np.int64)
-        assert int(sp.max(initial=0)) < (1 << 30)
-        sp_euk = (sp | (mask[sp].astype(np.int64) << 30)).astype(np.int32)
-        depth, lift = self.taxonomy.lca_lift_tables()
-        ef = self.taxonomy.euler_first.astype(np.int64)
-        # the redundancy step packs (hamming, euler_first) into one i32
-        # key: 6 bits hamming above a 25-bit euler coordinate
-        assert len(self.taxonomy.euler) < (1 << 25), \
-            "taxonomy too large for packed-key redundancy kernel"
-        db_ef = ef[self.index.taxids.astype(np.int64)].astype(np.int32)
+        stage = self.timer.stage
+        with stage("layout"):
+            n = self.taxonomy.num_nodes()
+            euk = self.taxonomy.eukaryota_id()
+            if euk:
+                mask = np.asarray(self.taxonomy.is_ancestor(euk,
+                                                            np.arange(n)))
+            else:
+                mask = np.zeros(n, dtype=bool)
+            # euk-ness rides in bit 30 of the species payload
+            sp = self.index.species.astype(np.int64)
+            assert int(sp.max(initial=0)) < (1 << 30)
+            sp_euk = (sp | (mask[sp].astype(np.int64) << 30)).astype(np.int32)
+            depth, lift = self.taxonomy.lca_lift_tables()
+            ef = self.taxonomy.euler_first.astype(np.int64)
+            # the redundancy step packs (hamming, euler_first) into one
+            # i32 key: 6 bits hamming above a 25-bit euler coordinate
+            assert len(self.taxonomy.euler) < (1 << 25), \
+                "taxonomy too large for packed-key redundancy kernel"
+            db_ef = ef[self.index.taxids.astype(np.int64)].astype(np.int32)
         if self.mesh is not None:
             self._init_mesh(db_ef, sp_euk, depth, lift, ef.astype(np.int32))
             return
@@ -428,15 +485,17 @@ class Classifier:
             # group of batches
             budget = self._hbm_budget_gb * (1 << 30) * 0.5
             n_ranges = max(2, int(np.ceil(self._shard_bytes / budget)))
-            quads, hts, log2_rows, chain, _ = load_or_shard(
-                self.index.values, db_ef, sp_euk, n_ranges,
-                wide=self._wide_probe)
-            st = stream_state_from_numpy(
-                quads, hts, log2_rows, chain, depth, lift,
-                self.taxonomy.euler.astype(np.int32), ef.astype(np.int32),
-                self.device)
-            self._ranges = _RangeStream(st.pop("stream_quads"),
-                                        st.pop("stream_hts"), self.device)
+            with stage("layout"):
+                quads, hts, log2_rows, chain, _ = load_or_shard(
+                    self.index.values, db_ef, sp_euk, n_ranges,
+                    wide=self._wide_probe)
+            with stage("upload"):
+                st = stream_state_from_numpy(
+                    quads, hts, log2_rows, chain, depth, lift,
+                    self.taxonomy.euler.astype(np.int32),
+                    ef.astype(np.int32), self.device)
+                self._ranges = _RangeStream(st.pop("stream_quads"),
+                                            st.pop("stream_hts"), self.device)
             self._n_ranges = n_ranges
             for k, v in st.items():
                 setattr(self, k, v)
@@ -455,16 +514,18 @@ class Classifier:
         self._wide = use_hash and self._wide_probe
         self._aligned = (not self._wide and use_hash and aligned_bytes(
             self.index._aa_runs()) <= self._align_cap)
-        if self._wide:
-            rows, ht, log2_rows, chain, db_m = load_or_pack_wide(
-                self.index.values, db_ef, sp_euk, **hash_kw)
-        else:
-            rows, ht, log2_rows, chain, db_m = load_or_pack_narrow(
-                self.index.values, db_ef, sp_euk, aligned=self._aligned,
-                use_hash=use_hash, **hash_kw)
-        st = state_from_numpy(rows, ht, log2_rows, chain, db_m, depth, lift,
-                              self.taxonomy.euler.astype(np.int32),
-                              ef.astype(np.int32), self.device)
+        with stage("layout"):
+            if self._wide:
+                rows, ht, log2_rows, chain, db_m = load_or_pack_wide(
+                    self.index.values, db_ef, sp_euk, **hash_kw)
+            else:
+                rows, ht, log2_rows, chain, db_m = load_or_pack_narrow(
+                    self.index.values, db_ef, sp_euk, aligned=self._aligned,
+                    use_hash=use_hash, **hash_kw)
+        with stage("upload"):
+            st = state_from_numpy(rows, ht, log2_rows, chain, db_m, depth,
+                                  lift, self.taxonomy.euler.astype(np.int32),
+                                  ef.astype(np.int32), self.device)
         for k, v in st.items():
             setattr(self, k, v)
         self._tables = {self.device: (self.euler, self.lca_depth,
@@ -478,8 +539,11 @@ class Classifier:
             # the bisection's bucket tables stay resident beside the rows
             from ..ops.match_torch import build_buckets
 
-            self._probe_kw.update(bucket_state_from_numpy(
-                *build_buckets(self.index.values), self.device))
+            with stage("layout"):
+                buckets = build_buckets(self.index.values)
+            with stage("upload"):
+                self._probe_kw.update(bucket_state_from_numpy(*buckets,
+                                                              self.device))
 
     def _init_mesh(self, db_ef, sp_euk, depth, lift, ef):
         """The index cut over the mesh's 'db' axis at AA-part boundaries,
@@ -497,13 +561,15 @@ class Classifier:
                                  and self._shard_bytes > budget * n_db)
         n_ranges = max(2, int(np.ceil(self._shard_bytes / (budget * n_db)))) \
             if self._mesh_stream else 1
-        quads, hts, log2_rows, chain, _ = load_or_shard(
-            self.index.values, db_ef, sp_euk, n_ranges * n_db,
-            wide=self._wide_probe)
-        st = sharded_state_from_numpy(
-            quads, hts, log2_rows, chain, depth, lift,
-            self.taxonomy.euler.astype(np.int32), ef, self.mesh,
-            resident=not self._mesh_stream)
+        with self.timer.stage("layout"):
+            quads, hts, log2_rows, chain, _ = load_or_shard(
+                self.index.values, db_ef, sp_euk, n_ranges * n_db,
+                wide=self._wide_probe)
+        with self.timer.stage("upload"):
+            st = sharded_state_from_numpy(
+                quads, hts, log2_rows, chain, depth, lift,
+                self.taxonomy.euler.astype(np.int32), ef, self.mesh,
+                resident=not self._mesh_stream)
         self.hash_log2_rows, self.hash_chain = log2_rows, chain
         self._host_shards = (st["stream_quads"], st["stream_hts"])
         self._n_ranges = n_ranges * n_db
@@ -608,10 +674,11 @@ class Classifier:
         """Classify one batch of string reads: pads (and masks) them as
         the Python reader's batches are, then classify_batch_arrays.
         Mate 2 is used only when some entry of seqs2 is not None."""
-        a1, l1 = self._pad_batch(seqs1)
-        a2 = l2 = None
-        if seqs2 is not None and any(s is not None for s in seqs2):
-            a2, l2 = self._pad_batch(seqs2)
+        with self.timer.stage("pad"):
+            a1, l1 = self._pad_batch(seqs1)
+            a2 = l2 = None
+            if seqs2 is not None and any(s is not None for s in seqs2):
+                a2, l2 = self._pad_batch(seqs2)
         return self.classify_batch_arrays(names, a1, l1, a2, l2)
 
     def classify_batch_arrays(self, names, a1, l1, a2=None, l2=None):
@@ -684,10 +751,11 @@ class Classifier:
             return self._dispatch_batch_dp_sharded(
                 names, a1, l1, a2, l2, cap, path_width, win_frac, path_block)
         with self.timer.stage("dispatch"):
-            r1, j1, ra1, l1 = self._prep_arrays(a1, l1, B)
-            r2 = j2 = ra2 = l2_c = None
-            if a2 is not None:
-                r2, j2, ra2, l2_c = self._prep_arrays(a2, l2, B)
+            with self.timer.stage("prep"):
+                r1, j1, ra1, l1 = self._prep_arrays(a1, l1, B)
+                r2 = j2 = ra2 = l2_c = None
+                if a2 is not None:
+                    r2, j2, ra2, l2_c = self._prep_arrays(a2, l2, B)
             packed_hdr, resident = fused_step_dp(
                 r1, j1, self.db_quad, reads2=r2, lens2=j2, ra1=ra1, ra2=ra2,
                 min_cons=int(self.params.min_cons_cnt),
@@ -695,7 +763,8 @@ class Classifier:
                 cap=cap, kmer_format=self.kmer_format,
                 syncmer=self.syncmer, smer_len=self.smer_len,
                 path_width=path_width, win_frac=win_frac,
-                path_block=path_block, **self._probe_kw)
+                path_block=path_block, stage=self.timer.stage,
+                **self._probe_kw)
             lmax2 = r2.shape[1] if r2 is not None else None
             part_w = part_widths(r1.shape[1], self.syncmer, self.kmer_format,
                                  self.smer_len, win_frac, lmax2=lmax2)
@@ -769,9 +838,11 @@ class Classifier:
 
         B = len(names)
         n_db = self.mesh.shape["db"]
-        with self.timer.stage("dispatch"):
-            rows, l1, l2_c, B_pad, lm1, lm2 = self._prep_arrays_sharded(
-                a1, l1, a2, l2, B)
+        stage = self.timer.stage
+        with stage("dispatch"):
+            with stage("prep"):
+                rows, l1, l2_c, B_pad, lm1, lm2 = self._prep_arrays_sharded(
+                    a1, l1, a2, l2, B)
             extract, probe, finish = make_sharded_stream_steps(
                 self.mesh, cap=cap, kmer_format=self.kmer_format,
                 syncmer=self.syncmer, smer_len=self.smer_len,
@@ -780,20 +851,23 @@ class Classifier:
                 path_width=path_width, win_frac=win_frac,
                 path_block=path_block, hash_log2_rows=self.hash_log2_rows,
                 hash_chain=self.hash_chain)
-            state = extract(rows)
-            if self._mesh_stream:
-                for rs in self._mesh_ranges.values():
-                    rs.sweeps += 1
-                for r in range(self._mesh_n_ranges):
-                    with self.timer.stage("upload"):
-                        shards = self.mesh.place(
-                            lambda c, d: self._mesh_ranges[d].upload(
-                                r * n_db + c))
-                    probe(state, shards)
-                    del shards      # one range at a time on the devices
-            else:
-                probe(state, self._cells)
-            outs, merged = finish(state)
+            with stage("extract"):
+                state = extract(rows)
+            with stage("probe"):
+                if self._mesh_stream:
+                    for rs in self._mesh_ranges.values():
+                        rs.sweeps += 1
+                    for r in range(self._mesh_n_ranges):
+                        with stage("upload"):
+                            shards = self.mesh.place(
+                                lambda c, d: self._mesh_ranges[d].upload(
+                                    r * n_db + c))
+                        probe(state, shards)
+                        del shards      # one range at a time on the devices
+                else:
+                    probe(state, self._cells)
+            with stage("paths"):
+                outs, merged = finish(state)
             self.mesh_merged_bytes += merged
             part_w = part_widths(lm1, self.syncmer, self.kmer_format,
                                  self.smer_len, win_frac, lmax2=lm2)
@@ -829,16 +903,20 @@ class Classifier:
         path_block = path_block or self._path_block
         ex_kw = dict(syncmer=self.syncmer, smer_len=self.smer_len,
                      kmer_format=self.kmer_format, win_frac=win_frac)
-        with self.timer.stage("dispatch"):
+        stage = self.timer.stage
+        with stage("dispatch"):
             per = []
             for names, a1, l1, a2, l2 in group:
                 B = len(names)
-                r1, j1, ra1, l1 = self._prep_arrays(a1, l1, B)
-                r2 = j2 = ra2 = l2_c = None
-                if a2 is not None:
-                    r2, j2, ra2, l2_c = self._prep_arrays(a2, l2, B)
-                qk, qp, qf, qs, qv, shapes, win_over = extract_queries_step(
-                    r1, j1, r2, j2, ra1, ra2, **ex_kw)
+                with stage("prep"):
+                    r1, j1, ra1, l1 = self._prep_arrays(a1, l1, B)
+                    r2 = j2 = ra2 = l2_c = None
+                    if a2 is not None:
+                        r2, j2, ra2, l2_c = self._prep_arrays(a2, l2, B)
+                with stage("extract"):
+                    qk, qp, qf, qs, qv, shapes, win_over = \
+                        extract_queries_step(r1, j1, r2, j2, ra1, ra2,
+                                             **ex_kw)
                 per.append(dict(
                     names=names, a1=a1, a2=a2, l1=l1, l2=l2_c, B=B,
                     lm1=r1.shape[1],
@@ -847,26 +925,30 @@ class Classifier:
                     win_over=win_over,
                     acc=new_accumulators(cap, qk.shape[0], self.device)))
             self._ranges.sweeps += 1
-            for r in range(self._n_ranges):
-                with self.timer.stage("upload"):
-                    quad_r, hash_r = self._ranges.upload(r)
-                for p in per:
-                    probe_range_step(
-                        p["qk"], p["qf"], p["qv"], quad_r, hash_r, p["acc"],
-                        cap=cap, kmer_format=self.kmer_format,
-                        hash_log2_rows=self.hash_log2_rows,
-                        hash_chain=self.hash_chain)
-                del quad_r, hash_r      # one range at a time on the device
+            with stage("probe"):
+                for r in range(self._n_ranges):
+                    with stage("upload"):
+                        quad_r, hash_r = self._ranges.upload(r)
+                    for p in per:
+                        probe_range_step(
+                            p["qk"], p["qf"], p["qv"], quad_r, hash_r,
+                            p["acc"], cap=cap, kmer_format=self.kmer_format,
+                            hash_log2_rows=self.hash_log2_rows,
+                            hash_chain=self.hash_chain)
+                    del quad_r, hash_r  # one range at a time on the device
 
             ctxs = []
             for p in per:
-                packed_hdr, resident = finish_stream_step(
-                    p["acc"], p["qp"], p["qs"], p["shapes"], p["win_over"],
-                    min_cons=int(self.params.min_cons_cnt),
-                    min_cons_euk=int(self.params.min_cons_cnt_euk),
-                    cap=cap, path_width=path_width, path_block=path_block,
-                    compact5=compact5_fits(p["B"], p["lm1"], p["lm2"]),
-                    **ex_kw)
+                with stage("paths"):
+                    packed_hdr, resident = finish_stream_step(
+                        p["acc"], p["qp"], p["qs"], p["shapes"],
+                        p["win_over"],
+                        min_cons=int(self.params.min_cons_cnt),
+                        min_cons_euk=int(self.params.min_cons_cnt_euk),
+                        cap=cap, path_width=path_width,
+                        path_block=path_block,
+                        compact5=compact5_fits(p["B"], p["lm1"], p["lm2"]),
+                        **ex_kw)
                 part_w = part_widths(p["lm1"], self.syncmer,
                                      self.kmer_format, self.smer_len,
                                      win_frac, lmax2=p["lm2"])
@@ -913,11 +995,12 @@ class Classifier:
         path_width, path_block = self._path_width, self._path_block
         combine_k = self._combine_k
         with self.timer.stage("dispatch"):
-            r1, j1, ra1, l1 = self._prep_arrays(a1, l1, B)
-            r2 = j2 = ra2 = l2_c = lmax2 = None
-            if a2 is not None:
-                r2, j2, ra2, l2_c = self._prep_arrays(a2, l2, B)
-                lmax2 = r2.shape[1]
+            with self.timer.stage("prep"):
+                r1, j1, ra1, l1 = self._prep_arrays(a1, l1, B)
+                r2 = j2 = ra2 = l2_c = lmax2 = None
+                if a2 is not None:
+                    r2, j2, ra2, l2_c = self._prep_arrays(a2, l2, B)
+                    lmax2 = r2.shape[1]
             lmax = r1.shape[1] + (lmax2 + 3 if a2 is not None else 0)
             records, packed2 = fused_step_full(
                 r1, j1, self.db_quad, self.ef_node, self.euler,
@@ -936,7 +1019,8 @@ class Classifier:
                 cap=cap, kmer_format=self.kmer_format,
                 syncmer=self.syncmer, smer_len=self.smer_len,
                 path_width=path_width, win_frac=win_frac,
-                path_block=path_block, **self._probe_kw)
+                path_block=path_block, stage=self.timer.stage,
+                **self._probe_kw)
             return {"full": True, "names": names, "l1": l1, "l2": l2_c,
                     "cap": cap, "a1": a1, "a2": a2, "path_width": path_width,
                     "path_block": path_block, "combine_k": combine_k,
@@ -1224,7 +1308,7 @@ class Classifier:
     # host-match flow: the device extracts, probes the raw arrays and
     # compacts the matches; the host sorts them into compareMatches order
     # and runs the whole scorer
-    def _fused_step_host(self, r1, j1, r2, j2, cap):
+    def _fused_step_host(self, r1, j1, r2, j2, cap, **step_kw):
         from ..models.flagship import fused_step
 
         ms = self._host_match_state()
@@ -1233,19 +1317,22 @@ class Classifier:
             ms["db_species"], cap=cap, kmer_format=self.kmer_format,
             syncmer=self.syncmer, smer_len=self.smer_len,
             bucket_lo=ms["bucket_lo"], db_aa_lo=ms["db_aa_lo"],
-            bucket_shift=ms["bucket_shift"], bucket_steps=ms["bucket_steps"])
+            bucket_shift=ms["bucket_shift"], bucket_steps=ms["bucket_steps"],
+            **step_kw)
 
     def _dispatch_batch_host(self, names, a1, l1, a2=None, l2=None, cap=None):
         B = len(names)
         cap = cap or self.cap
         with self.timer.stage("dispatch"):
-            h1, l1 = self._crop(a1, l1, B)
-            r2 = j2 = l2_c = None
-            if a2 is not None:
-                h2, l2_c = self._crop(a2, l2, B)
-                r2, j2 = self._up(h2), self._up(l2_c)
+            with self.timer.stage("prep"):
+                h1, l1 = self._crop(a1, l1, B)
+                r1, j1 = self._up(h1), self._up(l1)
+                r2 = j2 = l2_c = None
+                if a2 is not None:
+                    h2, l2_c = self._crop(a2, l2, B)
+                    r2, j2 = self._up(h2), self._up(l2_c)
             packed, count, overflow = self._fused_step_host(
-                self._up(h1), self._up(l1), r2, j2, cap)
+                r1, j1, r2, j2, cap, stage=self.timer.stage)
             # the (count, overflow) pair and an estimated match prefix
             # start their device->host copies NOW, so the transfers
             # overlap the host scoring of earlier batches

@@ -18,10 +18,18 @@ and the chunks of reads beyond the long-read row cap): it returns the
 compacted raw matches and the host runs the whole scorer on them.
 reads2=None means unpaired everywhere.
 
+fused_step_dp, fused_step_full and fused_step take `stage`, a factory of
+context managers by name (the pipeline passes its Classifier.timer.stage;
+by default a null context): the phases of the step run inside
+stage("extract"), stage("probe"), stage("paths") and, on the
+device-assign flow, stage("assign") (utils/timing names the spans).
+
 classify_step is the standalone step of the compile checks and dry runs
 (extract, flatten and the raw-array probe, returning the per-k-mer match
 tensors), and synthetic_db / synthetic_reads make its seeded inputs.
 """
+
+import contextlib
 
 import numpy as np
 import torch
@@ -29,6 +37,11 @@ import torch
 from ..device import resolve_device
 from ..ops import (assign_torch, compact_torch, dp_cuda, dp_torch,
                    encode_torch, match_torch)
+
+
+def _no_stage(name):
+    """The default `stage`: no span."""
+    return contextlib.nullcontext()
 
 
 def _dyn_gap(syncmer, kmer_format, win_frac):
@@ -51,7 +64,8 @@ def _mate2_offset(lens1):
 def fused_step(reads1, lens1, reads2, lens2, db_values, db_taxids,
                db_species, cap: int = 16, kmer_format: int = 2,
                syncmer: bool = False, smer_len: int = 5, bucket_lo=None,
-               db_aa_lo=None, bucket_shift: int = 0, bucket_steps: int = 0):
+               db_aa_lo=None, bucket_shift: int = 0, bucket_steps: int = 0,
+               stage=_no_stage):
     """Host-match device step: extract (+mate 2) -> raw-array probe ->
     match compaction.
 
@@ -59,21 +73,24 @@ def fused_step(reads1, lens1, reads2, lens2, db_values, db_taxids,
     ops/compact_torch.py for the packed columns."""
     dev = reads1.device
     b = reads1.shape[0]
-    sids = torch.arange(1, b + 1, dtype=torch.int32, device=dev)
-    kw = dict(syncmer=syncmer, smer_len=smer_len, kmer_format=kmer_format)
-    kmers, pos, valid = encode_torch.extract_batch(reads1, lens1, **kw)
-    parts = [encode_torch.flatten_batch(kmers, pos, valid, sids)]
-    if reads2 is not None:
-        k2, p2, v2 = encode_torch.extract_batch(reads2, lens2, **kw)
-        parts.append(encode_torch.flatten_batch(
-            k2, p2 + _mate2_offset(lens1), v2, sids))
-    qk, qp, qf, qs, qv = (torch.cat(c) for c in zip(*parts))
-    out = match_torch.match_kmers(qk, qf, qv, db_values, db_taxids,
-                                  db_species, cap=cap,
-                                  kmer_format=kmer_format,
-                                  bucket_lo=bucket_lo, db_aa_lo=db_aa_lo,
-                                  bucket_shift=bucket_shift,
-                                  bucket_steps=bucket_steps)
+    with stage("extract"):
+        sids = torch.arange(1, b + 1, dtype=torch.int32, device=dev)
+        kw = dict(syncmer=syncmer, smer_len=smer_len,
+                  kmer_format=kmer_format)
+        kmers, pos, valid = encode_torch.extract_batch(reads1, lens1, **kw)
+        parts = [encode_torch.flatten_batch(kmers, pos, valid, sids)]
+        if reads2 is not None:
+            k2, p2, v2 = encode_torch.extract_batch(reads2, lens2, **kw)
+            parts.append(encode_torch.flatten_batch(
+                k2, p2 + _mate2_offset(lens1), v2, sids))
+        qk, qp, qf, qs, qv = (torch.cat(c) for c in zip(*parts))
+    with stage("probe"):
+        out = match_torch.match_kmers(qk, qf, qv, db_values, db_taxids,
+                                      db_species, cap=cap,
+                                      kmer_format=kmer_format,
+                                      bucket_lo=bucket_lo, db_aa_lo=db_aa_lo,
+                                      bucket_shift=bucket_shift,
+                                      bucket_steps=bucket_steps)
     packed, count = compact_torch.compact_and_sort(out, qp, qf, qs)
     return packed, count, out["overflow"]
 
@@ -289,36 +306,39 @@ def fused_step_dp(reads1, lens1, db_quad, *, reads2=None, lens2=None,
                   hash_log2_rows: int = 0, hash_chain: int = 0,
                   db_m: int = None, aligned: bool = False, bucket_lo=None,
                   db_aa_lo=None, bucket_shift: int = 0,
-                  bucket_steps: int = 0):
+                  bucket_steps: int = 0, stage=_no_stage):
     """extract (+mate 2) -> probe of the resident index -> path DP per
     part -> compaction for one batch; returns finish_stream_step's
     (packed_hdr, resident).  The index is any layout match_kmers_quad
     probes: wide rows with the hash, narrow block rows (`aligned` run
     starts or not) with the hash, or narrow block rows without it
     (hash_table None: the bucket bisection over bucket_lo / db_aa_lo)."""
-    qk, qp, qf, qs, qv, shapes, win_over = extract_queries_step(
-        reads1, lens1, reads2, lens2, ra1, ra2, syncmer=syncmer,
-        smer_len=smer_len, kmer_format=kmer_format, win_frac=win_frac)
-    out = match_torch.match_kmers_quad(
-        qk, qf, qv, db_quad, cap=cap, kmer_format=kmer_format,
-        hash_table=hash_table, hash_log2_rows=hash_log2_rows,
-        hash_chain=hash_chain, db_m=db_m, aligned=aligned,
-        bucket_lo=bucket_lo, db_aa_lo=db_aa_lo, bucket_shift=bucket_shift,
-        bucket_steps=bucket_steps)
+    with stage("extract"):
+        qk, qp, qf, qs, qv, shapes, win_over = extract_queries_step(
+            reads1, lens1, reads2, lens2, ra1, ra2, syncmer=syncmer,
+            smer_len=smer_len, kmer_format=kmer_format, win_frac=win_frac)
+    with stage("probe"):
+        out = match_torch.match_kmers_quad(
+            qk, qf, qv, db_quad, cap=cap, kmer_format=kmer_format,
+            hash_table=hash_table, hash_log2_rows=hash_log2_rows,
+            hash_chain=hash_chain, db_m=db_m, aligned=aligned,
+            bucket_lo=bucket_lo, db_aa_lo=db_aa_lo,
+            bucket_shift=bucket_shift, bucket_steps=bucket_steps)
     compact5 = compact5_fits(reads1.shape[0], reads1.shape[1],
                              reads2.shape[1] if reads2 is not None else None)
-    return finish_stream_step(
-        out, qp, qs, shapes, win_over, min_cons=min_cons,
-        min_cons_euk=min_cons_euk, cap=cap, kmer_format=kmer_format,
-        syncmer=syncmer, smer_len=smer_len, path_width=path_width,
-        win_frac=win_frac, path_block=path_block, compact5=compact5)
+    with stage("paths"):
+        return finish_stream_step(
+            out, qp, qs, shapes, win_over, min_cons=min_cons,
+            min_cons_euk=min_cons_euk, cap=cap, kmer_format=kmer_format,
+            syncmer=syncmer, smer_len=smer_len, path_width=path_width,
+            win_frac=win_frac, path_block=path_block, compact5=compact5)
 
 
 def fused_step_full(reads1, lens1, db_quad, ef_node, euler, depth, lift, *,
                     reads2=None, lens2=None, min_score: float = 0.0,
                     tie_ratio: float = 0.95, combine_k: int = 8,
                     dna_shift: int = 0, n_quot: int = 0, part_w: tuple = (),
-                    **step_kw):
+                    stage=_no_stage, **step_kw):
     """Whole-batch device chain of the device-assign flow: fused_step_dp
     (step_kw are its keywords) + species assign + redundancy.  The batch
     must fit the 5-column path layout (compact5_fits).
@@ -332,21 +352,22 @@ def fused_step_full(reads1, lens1, db_quad, ef_node, euler, depth, lift, *,
     """
     packed_hdr, resident = fused_step_dp(reads1, lens1, db_quad,
                                          reads2=reads2, lens2=lens2,
-                                         **step_kw)
-    stats = packed_hdr[:4, 0]
-    B = reads1.shape[0]
-    qlens = torch.zeros(B + 1, dtype=torch.int32, device=reads1.device)
-    qlens[1:] = _max_covered_dev(lens1)
-    if reads2 is not None:
-        qlens[1:] += _max_covered_dev(lens2)
-    records, best_sp, over_k = assign_torch.device_assign(
-        packed_hdr[:, 1:], stats[1], qlens, ef_node, euler, depth, lift,
-        min_score=min_score, tie_ratio=tie_ratio, combine_k=combine_k)
-    records[:4, 0] = stats
-    records[4, 0] = over_k
-    packed2 = redundancy_counts(*resident, best_sp, euler, depth, lift,
-                                dna_shift=dna_shift, n_quot=n_quot,
-                                part_w=part_w)
+                                         stage=stage, **step_kw)
+    with stage("assign"):
+        stats = packed_hdr[:4, 0]
+        B = reads1.shape[0]
+        qlens = torch.zeros(B + 1, dtype=torch.int32, device=reads1.device)
+        qlens[1:] = _max_covered_dev(lens1)
+        if reads2 is not None:
+            qlens[1:] += _max_covered_dev(lens2)
+        records, best_sp, over_k = assign_torch.device_assign(
+            packed_hdr[:, 1:], stats[1], qlens, ef_node, euler, depth, lift,
+            min_score=min_score, tie_ratio=tie_ratio, combine_k=combine_k)
+        records[:4, 0] = stats
+        records[4, 0] = over_k
+        packed2 = redundancy_counts(*resident, best_sp, euler, depth, lift,
+                                    dna_shift=dna_shift, n_quot=n_quot,
+                                    part_w=part_w)
     return records, packed2
 
 

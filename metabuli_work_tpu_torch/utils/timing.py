@@ -6,12 +6,42 @@ Reference behavior: ad-hoc wall-clock stage prints (Classifier.cpp:
 seconds across batches (printed as a table), process RSS sampling, and
 maybe_torch_profile, a torch.profiler trace of a region (classify
 --profile-dir).
+
+StageTimer is the program's one tracer.  Classifier (classify/pipeline)
+opens these spans on its `timer`:
+
+- set-up, once per classifier (their seconds also kept in
+  Classifier.setup_times): `db_load` (load_index, or the import of a
+  reference-format DB), `layout` (LCA tables and the packed probe
+  layout, from the pack cache or built), `upload` (the index and tables
+  to the device; while streaming, `upload` is also each range's copy);
+- per batch: `input` (classify_file's parse and pad), `pad`
+  (classify_batch's padding of string reads), `dispatch` (the enqueue
+  of the device step) holding `prep` (crop, right-align and the copies
+  of the reads to the device), `extract`, `probe` (the index probe; the
+  range sweep when streamed), `paths` (lane flips, path DP and
+  compaction; on a mesh the db merge too) and, on the device-assign
+  flow, `assign`; then `hdr_sync`, `retry`, `fetch`, `score`,
+  `redundancy`, `redundancy_sync` (`decode+sort` on the host-match
+  flow; `long_probe`, `long_score` for reads beyond the row cap);
+- `gc`: each collection of Python's garbage collector (the classifier's
+  gc hook), inside whatever stage it interrupted.
+
+While a torch profiler runs (torch.profiler.profile, as
+maybe_torch_profile starts it), each span is also a record_function
+range named "stage:<name>" around it, on the profiler's clock, so the
+device operations a span launches are matched to it by launch
+correlation.  With no profiler the check is one attribute read.
 """
 
 import contextlib
 import os
 import time
 from collections import defaultdict
+
+import torch.autograd.profiler as _autograd_profiler
+
+STAGE_PREFIX = "stage:"
 
 
 class StageTimer:
@@ -21,6 +51,10 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name):
+        rf = None
+        if _autograd_profiler._is_profiler_enabled:
+            rf = _autograd_profiler.record_function(STAGE_PREFIX + name)
+            rf.__enter__()
         t0 = time.perf_counter()
         try:
             yield
@@ -28,6 +62,8 @@ class StageTimer:
             dt = time.perf_counter() - t0
             self.totals[name] += dt
             self.counts[name] += 1
+            if rf is not None:
+                rf.__exit__(None, None, None)
 
     def report(self, out=None):
         lines = ["stage\ttotal_s\tcalls\tper_call_ms"]
@@ -56,7 +92,8 @@ def maybe_torch_profile(trace_dir=None):
     """Wrap a region in a torch.profiler trace when trace_dir is given:
     CPU activity, plus CUDA activity when a card is visible; the Chrome
     trace is written to trace_dir/trace_<pid>_<ns>.json when the region
-    ends."""
+    ends.  The StageTimer spans opened inside it show as "stage:<name>"
+    ranges."""
     if not trace_dir:
         yield
         return
