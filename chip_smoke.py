@@ -6,8 +6,9 @@
    versions;
 2. builds the two path-DP CUDA kernels (csrc/path_dp_warp.cu, the warp
    variant for cap <= 32; csrc/path_dp.cu, the block variant, a warp a
-   lane, for larger caps; one nvcc each, in parallel) and prints the
-   build time;
+   lane, for larger caps) and the fused extraction kernel
+   (csrc/extract.cu; one nvcc each, the three in parallel) and prints
+   the build time;
 3. holds the kernels against their plain torch version on the card, for
    exact equality, over the small parity grid, the shapes where the
    kernels branch (cap 32 | 33, a partial block, W ending inside a
@@ -20,6 +21,11 @@
    staged tile, more than 48 KB of shared memory at cap 384, the
    global-scratch ring at cap 1100); checks that each case went to the
    variant its cap selects;
+   then runs the extraction kernel at the benchmark cells' shapes
+   (paired: 2 x 1,024 rows of 168 bases; api: 1,024 rows of 168; long:
+   32 rows of log-normal lengths up to 60 kb), each equal to its plain
+   torch version on the same tensors, its device ms a launch beside its
+   byte bound and the plain version's ms ("extract kernel ..." lines);
 4. builds (or loads from ~/.cache) a syncmer DB of 8 genomes x 4 Mb in 2
    genera and drives its paths on it through Classifier(device="cuda")
    and classify_file, each after a one-batch warm-up, each with the
@@ -689,12 +695,14 @@ KEEP_INPUTS = 6     # launches per path whose inputs are kept for timing
 
 def drive(dp_cuda, clf, run):
     """One main-path run: stage timer and peak-memory mark reset, every
-    kernel count set to 0 just before `run()` and read just after.
-    Every path_dp_blocked call is noted as (cap, W, compact5); the inputs
+    kernel count (the path DP's and the extraction kernel's) set to 0
+    just before `run()` and read just after.  Every path_dp_blocked call is noted as (cap, W, compact5); the inputs
     of the first KEEP_INPUTS distinct ones are kept (device copies, so
     they count into the run's peak memory) for the timings.  `clf` is the
     classifier `run` uses, or a function that returns it after the run
     (a classifier that `run` makes, whose timer starts at zero)."""
+    from metabuli_work_tpu_torch.ops import encode_cuda
+
     calls, first = [], {}
     launch = dp_cuda.path_dp_blocked
 
@@ -714,6 +722,7 @@ def drive(dp_cuda, clf, run):
     dp_cuda.path_dp_blocked = capture
     dp_cuda.launches = dp_cuda.warp_launches = 0
     dp_cuda.block_launches = dp_cuda.plain_cuda_calls = 0
+    encode_cuda.launches = 0
     t0 = time.perf_counter()
     try:
         results = run()
@@ -721,11 +730,14 @@ def drive(dp_cuda, clf, run):
     finally:
         dp_cuda.path_dp_blocked = launch
     dt = time.perf_counter() - t0
+    extract_launches = encode_cuda.launches
     if callable(clf):
         clf = clf()
     return {"results": results, "dt": dt, "calls": calls, "first": first,
             "launches": dp_cuda.launches, "plain": dp_cuda.plain_cuda_calls,
             "counts": variant_counts(dp_cuda),
+            "extract_launches": extract_launches,
+            "extract_spans": clf.timer.counts["extract"],
             "dispatches": clf.timer.counts["dispatch"],
             "peak": torch.cuda.max_memory_allocated(), "base": base,
             "reader": clf.reader, "timer": clf.timer}
@@ -751,6 +763,18 @@ def check_launches(name, r, dp_cuda):
     assert counts["warp"] == n_small, \
         f"{name}: a launch at cap <= 32 did not go to the warp variant"
     assert counts["block"] == r["launches"] - n_small
+    check_extract(name, r)
+
+
+def check_extract(name, r):
+    """The run extracted on the card through the fused kernel: at least
+    one launch, and at least one for each `extract` span (a mesh span
+    launches once per dp row; the long-read chunk pass launches outside
+    any span)."""
+    n, spans = r["extract_launches"], r["extract_spans"]
+    print(f"{name}: {n} extraction kernel launches, {spans} extract spans")
+    assert n > 0 and n >= spans, \
+        f"{name}: {n} extraction kernel launches for {spans} extract spans"
 
 
 def check_path(name, r, n_reads, src, dp_cuda, card, unit="reads",
@@ -1767,6 +1791,77 @@ def aa_extract_phase(reads, card):
               f"the host scanner; {ms:.3f} ms a call on {card}")
 
 
+EXTRACT_SHAPES = (                 # the benchmark cells' extraction shapes
+    ("paired", 1024, (168, 168)),    # 2 x 150 bp, bucketed to 168
+    ("api", 1024, (168,)),           # 150 bp single-end
+    ("long", 32, (None,)),           # log-normal median 8 kb, 1-60 kb
+)
+
+
+def extract_phase(card):
+    """The fused extraction kernel (csrc/extract.cu) at the benchmark
+    cells' shapes (syncmer, win_frac 184, as the gtdb40 cells run):
+    every output equal to its plain torch version on the same CUDA
+    tensors; the kernel's device ms a call (back to back) beside its
+    byte bound (the reads and lengths read once, 21 bytes a flat slot
+    written once) and the plain version's ms a call.  Returns the
+    kernels-line entry."""
+    from metabuli_work_tpu_torch.classify.pipeline import _bucket_len
+    from metabuli_work_tpu_torch.models import flagship
+    from metabuli_work_tpu_torch.ops import encode_cuda
+
+    rng = np.random.default_rng(16)
+    kw = dict(syncmer=True, smer_len=5, kmer_format=2, win_frac=184)
+    shapes = []
+    for name, B, lmaxes in EXTRACT_SHAPES:
+        parts = []
+        for lmax in lmaxes:
+            if lmax is None:
+                lens = np.clip(rng.lognormal(np.log(8000), 0.6, B), 1000,
+                               60_000).astype(np.int32)
+                lmax = _bucket_len(int(lens.max()))
+            else:
+                lens = np.full(B, READ_LEN, np.int32)
+            arr = np.full((B, lmax), ord("N"), np.uint8)
+            for b in range(B):
+                arr[b, :lens[b]] = ACGT[rng.integers(0, 4, int(lens[b]))]
+            parts += [torch.from_numpy(arr).cuda(),
+                      torch.from_numpy(lens).cuda()]
+        call = lambda: flagship.extract_queries_step(*parts, **kw)
+        plain = lambda: flagship.extract_queries_step_ref(*parts, **kw)
+        got, ref = call(), plain()
+        torch.cuda.synchronize()
+        for a, b in zip(got[:5], ref[:5]):
+            assert torch.equal(a, b), f"extract kernel != plain ({name})"
+        assert got[5] == ref[5] and int(got[6]) == int(ref[6])
+        n0 = encode_cuda.launches
+        ms = time_cuda(call, 50, queue_ahead=True)
+        torch.cuda.synchronize()
+        assert encode_cuda.launches - n0 == 51, "one launch a call"
+        plain_ms = time_cuda(plain, 3)
+        torch.cuda.synchronize()
+        n_slots = got[0].numel()
+        rows = [p.shape[1] for p in parts[::2]]
+        nbytes = sum(p.numel() * p.element_size() for p in parts) \
+            + 21 * n_slots
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"extract kernel {name} (B={B}, rows of {rows} bases, "
+              f"{n_slots} slots, {int(got[4].sum())} valid): {ms:.4f} "
+              f"ms/launch, byte bound {bound_ms:.4f} ms ({nbytes} B), "
+              f"plain version {plain_ms:.3f} ms; exact on {card}")
+        shapes.append({"path": name, "B": B, "rows": rows, "slots": n_slots,
+                       "ms": ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                       "plain_ms": plain_ms, "max_abs_err": 0})
+    first = shapes[0]
+    return {"name": "extract", "variant": None, "path": first["path"],
+            "route": "cuda",
+            "source": "metabuli_work_tpu_torch/csrc/extract.cu",
+            "replaces": None, "launches": None,
+            "max_abs_err": 0, "ms": first["ms"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "shapes": shapes}
+
+
 def readgroup_phase(fa, src, src2, se_results, card, common):
     """run_grouping of the single-end reads and of the pairs (native
     union-find) against the common-k-mer DB of the smoke genomes
@@ -2381,6 +2476,8 @@ def dist_worker(argv):
     m0 = clf.mesh_merged_bytes
     r = drive(dp_cuda, clf, lambda: clf.classify_file(reads_path))
     assert r["launches"] == r["dispatches"] > 0     # one row, one part
+    assert r["extract_launches"] == r["extract_spans"] == r["dispatches"], \
+        (r["extract_launches"], r["extract_spans"], r["dispatches"])
     max_err = {"warp": 0, "block": 0}
     for key, (args, kw) in r["first"].items():
         ref = dp_cuda.path_dp_blocked_ref(*args, **kw)
@@ -2390,6 +2487,7 @@ def dist_worker(argv):
     with open(out, "w") as f:
         json.dump({"records": records(r["results"]),
                    "launches": r["launches"], "counts": r["counts"],
+                   "extract_launches": r["extract_launches"],
                    "dispatches": r["dispatches"], "dt": r["dt"],
                    "merged": clf.mesh_merged_bytes - m0,
                    "max_err": max_err}, f)
@@ -2461,6 +2559,10 @@ def smoke(prep, prep_dir, profiled, seed):
     max_err, n_cases = parity(dp_cuda)
     print(f"parity: {n_cases} cases exact, max_abs_err {max_err} "
           f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    extract_kernel = extract_phase(card)
+    print(f"phase seconds: extract kernel {time.perf_counter() - t0:.1f}")
 
     made = prep.result("smoke db")
     t0 = time.perf_counter()
@@ -2936,6 +3038,7 @@ def smoke(prep, prep_dir, profiled, seed):
         merged = {}
         for part in dist_parts:
             assert part["records"] and part["launches"] > 0
+            assert part["extract_launches"] > 0
             for k, v in part["records"].items():
                 assert k not in merged, f"read {k} scored by two processes"
                 merged[k] = v
@@ -3175,6 +3278,13 @@ def smoke(prep, prep_dir, profiled, seed):
                        if dp_cuda.variant(k[0]) == which],
         })
     assert kernels, "no path-DP kernel was launched on any path"
+    # the main paths' own launches (each counted from 0 around its run);
+    # extract_phase's synthetic and timing launches are not among them
+    by_path = {p: r["extract_launches"] for p, r in runs.items()}
+    by_path["distributed"] = sum(p["extract_launches"] for p in dist_parts)
+    assert all(by_path.values()), f"extraction kernel not launched: {by_path}"
+    kernels.append(dict(extract_kernel, launches=sum(by_path.values()),
+                        launches_by_path=by_path))
     prep.close()
     lap("main-path parity and timings")
     total = laps[-1][1] - laps[0][1]

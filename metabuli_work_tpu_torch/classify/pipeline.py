@@ -108,7 +108,6 @@ from ..io.fasta import read_seq_file
 from ..ops import compact_torch
 from ..ops import mask as mask_ops
 from ..ops.dp_torch import decode_paths
-from ..ops.encode_torch import right_align
 from ..parallel.sharding import (Mesh, make_sharded_redundancy,
                                  make_sharded_stream_steps, reduce_header)
 from ..utils.timing import StageTimer
@@ -650,11 +649,10 @@ class Classifier:
         return torch.from_numpy(a).to(self.device, non_blocking=True)
 
     def _prep_arrays(self, a, l, B):
-        """Crop one mate to its length bucket and move reads, lengths and
-        the host-built right-aligned copy to the device."""
+        """Crop one mate to its length bucket and move reads and lengths
+        to the device: (reads, lengths on the device, host lengths)."""
         h, l = self._crop(a, l, B)
-        ra = np.ascontiguousarray(right_align(h, l))
-        return self._up(h), self._up(l), self._up(ra), l
+        return self._up(h), self._up(l), l
 
     _WIDTH_SHRINK_AFTER = 4
     _WIDTH_FLOOR = 1 << 13
@@ -752,12 +750,12 @@ class Classifier:
                 names, a1, l1, a2, l2, cap, path_width, win_frac, path_block)
         with self.timer.stage("dispatch"):
             with self.timer.stage("prep"):
-                r1, j1, ra1, l1 = self._prep_arrays(a1, l1, B)
-                r2 = j2 = ra2 = l2_c = None
+                r1, j1, l1 = self._prep_arrays(a1, l1, B)
+                r2 = j2 = l2_c = None
                 if a2 is not None:
-                    r2, j2, ra2, l2_c = self._prep_arrays(a2, l2, B)
+                    r2, j2, l2_c = self._prep_arrays(a2, l2, B)
             packed_hdr, resident = fused_step_dp(
-                r1, j1, self.db_quad, reads2=r2, lens2=j2, ra1=ra1, ra2=ra2,
+                r1, j1, self.db_quad, reads2=r2, lens2=j2,
                 min_cons=int(self.params.min_cons_cnt),
                 min_cons_euk=int(self.params.min_cons_cnt_euk),
                 cap=cap, kmer_format=self.kmer_format,
@@ -795,10 +793,9 @@ class Classifier:
     def _prep_arrays_sharded(self, a1, l1, a2, l2, B):
         """Pad the batch to a multiple of dp with zero-length reads, crop
         each mate to its length bucket, and upload each local dp row's
-        slice (reads, lengths, right-aligned copy) to the row's device;
-        a process uploads only its own rows.  Returns ({row: (r1, j1, r2,
-        j2, ra1, ra2)}, host lengths of mate 1 and 2 (None unpaired), B_pad,
-        lmax1, lmax2)."""
+        slice (reads, lengths) to the row's device; a process uploads only
+        its own rows.  Returns ({row: (r1, j1, r2, j2)}, host lengths of
+        mate 1 and 2 (None unpaired), B_pad, lmax1, lmax2)."""
         dp = self.mesh.shape["dp"]
         B_pad = -(-max(B, 1) // dp) * dp
         Bl = B_pad // dp
@@ -808,23 +805,21 @@ class Classifier:
             out[:B] = a
             return out
 
-        # per mate: padded rows, padded lengths, right-aligned copy
+        # per mate: padded rows, padded lengths
         h1, l1 = self._crop(a1, l1, B)
-        mates = [(pad(h1), pad(l1))]
+        host = [(pad(h1), pad(l1))]
         if a2 is not None:
             h2, l2 = self._crop(a2, l2, B)
-            mates.append((pad(h2), pad(l2)))
-        host = [(h, lp, np.ascontiguousarray(right_align(h, lp)))
-                for h, lp in mates]
+            host.append((pad(h2), pad(l2)))
         rows = {}
         for i in self.mesh.local_rows:
             dev = self.mesh.row_device(i)
             up = lambda a: torch.from_numpy(np.ascontiguousarray(
                 a[i * Bl:(i + 1) * Bl])).to(dev, non_blocking=True)
-            r1, j1, ra1 = (up(a) for a in host[0])
-            r2, j2, ra2 = (up(a) for a in host[1]) if a2 is not None \
-                else (None, None, None)
-            rows[i] = (r1, j1, r2, j2, ra1, ra2)
+            r1, j1 = (up(a) for a in host[0])
+            r2, j2 = (up(a) for a in host[1]) if a2 is not None \
+                else (None, None)
+            rows[i] = (r1, j1, r2, j2)
         return (rows, l1, l2 if a2 is not None else None, B_pad,
                 h1.shape[1], h2.shape[1] if a2 is not None else None)
 
@@ -909,14 +904,13 @@ class Classifier:
             for names, a1, l1, a2, l2 in group:
                 B = len(names)
                 with stage("prep"):
-                    r1, j1, ra1, l1 = self._prep_arrays(a1, l1, B)
-                    r2 = j2 = ra2 = l2_c = None
+                    r1, j1, l1 = self._prep_arrays(a1, l1, B)
+                    r2 = j2 = l2_c = None
                     if a2 is not None:
-                        r2, j2, ra2, l2_c = self._prep_arrays(a2, l2, B)
+                        r2, j2, l2_c = self._prep_arrays(a2, l2, B)
                 with stage("extract"):
                     qk, qp, qf, qs, qv, shapes, win_over = \
-                        extract_queries_step(r1, j1, r2, j2, ra1, ra2,
-                                             **ex_kw)
+                        extract_queries_step(r1, j1, r2, j2, **ex_kw)
                 per.append(dict(
                     names=names, a1=a1, a2=a2, l1=l1, l2=l2_c, B=B,
                     lm1=r1.shape[1],
@@ -996,16 +990,15 @@ class Classifier:
         combine_k = self._combine_k
         with self.timer.stage("dispatch"):
             with self.timer.stage("prep"):
-                r1, j1, ra1, l1 = self._prep_arrays(a1, l1, B)
-                r2 = j2 = ra2 = l2_c = lmax2 = None
+                r1, j1, l1 = self._prep_arrays(a1, l1, B)
+                r2 = j2 = l2_c = lmax2 = None
                 if a2 is not None:
-                    r2, j2, ra2, l2_c = self._prep_arrays(a2, l2, B)
+                    r2, j2, l2_c = self._prep_arrays(a2, l2, B)
                     lmax2 = r2.shape[1]
             lmax = r1.shape[1] + (lmax2 + 3 if a2 is not None else 0)
             records, packed2 = fused_step_full(
                 r1, j1, self.db_quad, self.ef_node, self.euler,
                 self.lca_depth, self.lca_lift, reads2=r2, lens2=j2,
-                ra1=ra1, ra2=ra2,
                 min_score=float(self.params.min_score),
                 tie_ratio=float(self.params.tie_ratio),
                 combine_k=combine_k,
@@ -1511,9 +1504,8 @@ class Classifier:
                                        new_accumulators, probe_range_step)
 
         r1, j1 = self._up(arr), self._up(lens)
-        ra1 = self._up(np.ascontiguousarray(right_align(arr, lens)))
         qk, qp, qf, qs, qv, _, _ = extract_queries_step(
-            r1, j1, ra1=ra1, syncmer=self.syncmer, smer_len=self.smer_len,
+            r1, j1, syncmer=self.syncmer, smer_len=self.smer_len,
             kmer_format=self.kmer_format, win_frac=256)
         if self._ranges is None:         # a resident mesh's host shards
             self._ranges = _RangeStream(*self._host_shards, self.device)

@@ -36,7 +36,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops import (assign_torch, compact_torch, dp_cuda, dp_torch,
-                   encode_torch, match_torch)
+                   encode_cuda, encode_torch, match_torch)
 
 
 def _no_stage(name):
@@ -71,19 +71,10 @@ def fused_step(reads1, lens1, reads2, lens2, db_values, db_taxids,
 
     Returns (packed int32 [6, N*cap], count, overflow); see
     ops/compact_torch.py for the packed columns."""
-    dev = reads1.device
-    b = reads1.shape[0]
     with stage("extract"):
-        sids = torch.arange(1, b + 1, dtype=torch.int32, device=dev)
-        kw = dict(syncmer=syncmer, smer_len=smer_len,
-                  kmer_format=kmer_format)
-        kmers, pos, valid = encode_torch.extract_batch(reads1, lens1, **kw)
-        parts = [encode_torch.flatten_batch(kmers, pos, valid, sids)]
-        if reads2 is not None:
-            k2, p2, v2 = encode_torch.extract_batch(reads2, lens2, **kw)
-            parts.append(encode_torch.flatten_batch(
-                k2, p2 + _mate2_offset(lens1), v2, sids))
-        qk, qp, qf, qs, qv = (torch.cat(c) for c in zip(*parts))
+        qk, qp, qf, qs, qv, _, _ = extract_queries_step(
+            reads1, lens1, reads2, lens2, syncmer=syncmer, smer_len=smer_len,
+            kmer_format=kmer_format)
     with stage("probe"):
         out = match_torch.match_kmers(qk, qf, qv, db_values, db_taxids,
                                       db_species, cap=cap,
@@ -125,11 +116,8 @@ def classify_step(reads, lengths, db_values, db_taxids, db_species,
     reads, lengths, db_values, db_taxids, db_species = (
         _tensor_on(a, dev)
         for a in (reads, lengths, db_values, db_taxids, db_species))
-    kmers, pos, valid = encode_torch.extract_batch(
+    qk, qp, qf, qs, qv, _, _ = extract_queries_step(
         reads, lengths, syncmer=syncmer, smer_len=smer_len)
-    b = reads.shape[0]
-    sids = torch.arange(1, b + 1, dtype=torch.int32, device=dev)
-    qk, qp, qf, qs, qv = encode_torch.flatten_batch(kmers, pos, valid, sids)
     out = match_torch.match_kmers(qk, qf, qv, db_values, db_taxids,
                                   db_species, cap=cap,
                                   kmer_format=kmer_format)
@@ -137,6 +125,13 @@ def classify_step(reads, lengths, db_values, db_taxids, db_species,
     out["frame"] = qf
     out["seq_id"] = qs
     return out
+
+
+def _part_width(lmax, dyn_gap, win_frac):
+    """Window slots a frame of a part padded to lmax: all of them, or with
+    window compaction (dyn_gap) win_frac/256 of them (at least one)."""
+    W = encode_torch.max_windows(lmax)
+    return max(min((W * win_frac + 255) // 256, W), 1) if dyn_gap else W
 
 
 def extract_queries_step(reads1, lens1, reads2=None, lens2=None, ra1=None,
@@ -150,24 +145,46 @@ def extract_queries_step(reads1, lens1, reads2=None, lens2=None, ra1=None,
     Returns flat (qk, qp, qf, qs, qv) query tensors (parts concatenated),
     the per-part (B, 6, W) shapes, and the window-compaction overflow
     count summed over parts.  A streamed run extracts once and keeps
-    these resident across all its range passes."""
+    these resident across all its range passes.  CUDA tensors go through
+    the fused kernel (ops/encode_cuda.py: one launch, no right-aligned
+    copy, ra1/ra2 unread), CPU tensors through extract_queries_step_ref."""
     # syncmer window compaction: only ~half the windows pass the anchor
     # rule — shrink the W axis to win_frac/256 of its static size before
     # probing (the dyn_gap path DP chains compacted slots by real
     # position gaps).  win_frac == 0 or >= 256 disables compaction.
+    dyn_gap = _dyn_gap(syncmer, kmer_format, win_frac)
+    if reads1.is_cuda:
+        parts = [(reads1, lens1)] + ([(reads2, lens2)]
+                                     if reads2 is not None else [])
+        return encode_cuda.extract_queries(
+            [(r, l, _part_width(r.shape[1], dyn_gap, win_frac))
+             for r, l in parts],
+            syncmer=syncmer, smer_len=smer_len, kmer_format=kmer_format,
+            compact=dyn_gap)
+    return extract_queries_step_ref(
+        reads1, lens1, reads2, lens2, ra1, ra2, syncmer=syncmer,
+        smer_len=smer_len, kmer_format=kmer_format, win_frac=win_frac)
+
+
+def extract_queries_step_ref(reads1, lens1, reads2=None, lens2=None,
+                             ra1=None, ra2=None, *, syncmer: bool = False,
+                             smer_len: int = 5, kmer_format: int = 2,
+                             win_frac: int = 0):
+    """extract_queries_step in plain torch (the CUDA kernel's plain
+    version; any device): extract_batch_ref per part (from the
+    right-aligned copies ra1/ra2 when given), compact_windows,
+    flatten_batch and a concatenation."""
     dyn_gap = _dyn_gap(syncmer, kmer_format, win_frac)
     dev = reads1.device
     win_over = torch.zeros((), dtype=torch.int32, device=dev)
 
     def extract_part(reads, lens, ra):
         nonlocal win_over
-        kk, pp, vv = encode_torch.extract_batch(reads, lens, syncmer=syncmer,
-                                                smer_len=smer_len,
-                                                kmer_format=kmer_format,
-                                                reads_ra=ra)
+        kk, pp, vv = encode_torch.extract_batch_ref(
+            reads, lens, syncmer=syncmer, smer_len=smer_len,
+            kmer_format=kmer_format, reads_ra=ra)
         if dyn_gap:
-            W = kk.shape[2]
-            w_c = max(min((W * win_frac + 255) // 256, W), 1)
+            w_c = _part_width(reads.shape[1], dyn_gap, win_frac)
             kk, pp, vv, over = encode_torch.compact_windows(kk, pp, vv, w_c)
             win_over = win_over + over
         return kk, pp, vv
@@ -376,10 +393,8 @@ def part_widths(lmax1, syncmer, kmer_format, smer_len, win_frac, lmax2=None):
     (two parts when lmax2 is given: paired); the redundancy step rebuilds
     read ids from it by broadcast."""
     def one(lmax):
-        W = encode_torch.max_windows(lmax)
-        if _dyn_gap(syncmer, kmer_format, win_frac):
-            W = max(min((W * win_frac + 255) // 256, W), 1)
-        return 6 * W
+        return 6 * _part_width(lmax, _dyn_gap(syncmer, kmer_format, win_frac),
+                               win_frac)
 
     return (one(lmax1),) if lmax2 is None else (one(lmax1), one(lmax2))
 

@@ -18,24 +18,18 @@ metabuli_work_tpu/ops/dp_pallas.py::_dp_kernel, chosen by cap alone:
 
 The notes at the top of each source say what bounds it on an H100 and
 how its design answers that.  Each kernel library is compiled by nvcc
-(sm_90a) at first use into the package's build directory
-(utils/build.py), the two in parallel, and bound with ctypes.
+(sm_90a) at first use into the package's build directory, in parallel
+with the package's other CUDA libraries (utils/build.cuda_libraries),
+and bound with ctypes.
 """
 
 import ctypes
-import os
-import shutil
-from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from ..utils.build import REPO_ROOT, build_library
+from ..utils.build import cuda_libraries
 from . import dp_torch
 
-_CSRC = os.path.join(REPO_ROOT, "metabuli_work_tpu_torch", "csrc")
-SOURCES = {"block": os.path.join(_CSRC, "path_dp.cu"),
-           "warp": os.path.join(_CSRC, "path_dp_warp.cu")}
-_HEADER = os.path.join(_CSRC, "path_dp_common.cuh")
 WARP_MAX_CAP = 32                # a lane's candidates fit one warp
 MAX_CAP = 4096                   # block variant: 12-bit entry indices
 MAX_SHIFT = 8                    # 24-bit DNA codes shift by <= 8 codons
@@ -51,35 +45,19 @@ plain_cuda_calls = 0
 _LIBS = None
 
 
-def _nvcc():
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError("nvcc not found: the CUDA path DP kernels cannot be "
-                       "built")
-
-
 def variant(cap: int) -> str:
     """The kernel that path_dp_blocked launches for this cap."""
     return "warp" if cap <= WARP_MAX_CAP else "block"
 
 
 def build():
-    """Compile (if needed, both libraries at once) and load the kernel
-    libraries; returns {"warp": lib, "block": lib}."""
+    """Compile (if needed, with the package's other CUDA libraries) and
+    load the kernel libraries; returns {"warp": lib, "block": lib}."""
     global _LIBS
     if _LIBS is not None:
         return _LIBS
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
-    with ThreadPoolExecutor(len(SOURCES)) as ex:
-        futs = {v: ex.submit(build_library, [src], f"libpath_dp_{v}.so", cmd,
-                             deps=[_HEADER])
-                for v, src in SOURCES.items()}
-        libs = {v: ctypes.CDLL(f.result()) for v, f in futs.items()}
+    built = cuda_libraries()
+    libs = {v: built[f"path_dp_{v}"] for v in ("warp", "block")}
     P, I = ctypes.c_void_p, ctypes.c_int
     L = ctypes.c_longlong
     blk = libs["block"]

@@ -12,6 +12,10 @@ Output layout: ``[B, 6, W]`` metamer values + positions + validity mask,
 where ``W = Lmax//3 - 7`` window slots per frame.  Metamers are int64
 holding the u64 bits (the AA part reaches bit 63); every right shift of
 one is followed by a mask, so it acts as a logical shift.
+
+extract_batch launches the fused CUDA kernel (ops/encode_cuda.py) for
+CUDA tensors; extract_batch_ref, the torch body here, is its plain
+version and runs for CPU tensors.
 """
 
 import numpy as np
@@ -80,7 +84,26 @@ def _codon_values(reads, table):
 def extract_batch(reads, lengths, syncmer: bool = False, smer_len: int = 5,
                   k: int = KMER_LEN, aa_only: bool = False,
                   kmer_format: int = 2, reads_ra=None):
-    """Extract metamers for a batch of reads.
+    """Extract metamers for a batch of reads: the CUDA kernel for CUDA
+    tensors (which reads the reverse frames from `reads` and takes no
+    `reads_ra`), else extract_batch_ref.  Arguments and results as
+    extract_batch_ref's."""
+    if reads.is_cuda:
+        from . import encode_cuda
+        return encode_cuda.extract_batch(
+            reads, lengths, syncmer=syncmer, smer_len=smer_len, k=k,
+            aa_only=aa_only, kmer_format=kmer_format)
+    return extract_batch_ref(reads, lengths, syncmer=syncmer,
+                             smer_len=smer_len, k=k, aa_only=aa_only,
+                             kmer_format=kmer_format, reads_ra=reads_ra)
+
+
+def extract_batch_ref(reads, lengths, syncmer: bool = False,
+                      smer_len: int = 5, k: int = KMER_LEN,
+                      aa_only: bool = False, kmer_format: int = 2,
+                      reads_ra=None):
+    """Extract metamers for a batch of reads (the plain torch version of
+    the CUDA kernel; any device).
 
     Args:
       reads: uint8 [B, Lmax] ASCII bases (padding value irrelevant).

@@ -48,7 +48,7 @@ import torch
 from ..device import resolve_device
 from ..index.packing import DNA_BITS, shard_quad_index  # noqa: F401
 from ..models import flagship
-from ..ops import dp_torch, encode_torch
+from ..ops import dp_torch
 from ..ops.match_torch import _hamming_filter
 
 _M40 = (1 << 40) - 1
@@ -232,12 +232,9 @@ def _probe_row_merged(mesh, i, reads, lens, index, cap, kmer_format,
                       syncmer, smer_len):
     """Row i: extract, probe every cell's plain shard, merge onto the
     row's device (all fields summed as int32, sel included)."""
-    kmers, pos, valid = encode_torch.extract_batch(
+    qk, qp, qf, qs, qv, shapes, _ = flagship.extract_queries_step(
         reads, lens, syncmer=syncmer, smer_len=smer_len,
         kmer_format=kmer_format)
-    b = reads.shape[0]
-    sids = torch.arange(1, b + 1, dtype=torch.int32, device=reads.device)
-    qk, qp, qf, qs, qv = encode_torch.flatten_batch(kmers, pos, valid, sids)
     dev = mesh.row_device(i)
     merged = None
     for c, d in enumerate(mesh.devices[i]):
@@ -248,7 +245,7 @@ def _probe_row_merged(mesh, i, reads, lens, index, cap, kmer_format,
                for k, v in out.items()}
         merged = out if merged is None else \
             {k: merged[k] + out[k] for k in merged}
-    return merged, (kmers.shape, qp, qf, qs)
+    return merged, (shapes[0], qp, qf, qs)
 
 
 def make_sharded_classify_step(mesh, cap: int = 16, kmer_format: int = 2,
@@ -344,8 +341,8 @@ def make_sharded_stream_steps(mesh, *, cap: int, kmer_format: int = 2,
                               hash_chain: int = 1):
     """The three stages of a mesh batch: (extract, probe, finish).
 
-    extract(rows) with rows = {dp row: (r1, j1, r2, j2, ra1, ra2)} on the
-    row's device (r2 = j2 = ra2 = None unpaired) returns the batch state:
+    extract(rows) with rows = {dp row: (r1, j1, r2, j2)} on the row's
+    device (r2 = j2 = None unpaired) returns the batch state:
     per row the query tensors (copied once to each other device of the
     row's cells) and one zeroed accumulator set per cell.
     probe(state, shards) folds one index range into every cell's
@@ -364,10 +361,9 @@ def make_sharded_stream_steps(mesh, *, cap: int, kmer_format: int = 2,
 
     def extract(rows):
         state = {}
-        for i, (r1, j1, r2, j2, ra1, ra2) in rows.items():
+        for i, (r1, j1, r2, j2) in rows.items():
             qk, qp, qf, qs, qv, shapes, win_over = \
-                flagship.extract_queries_step(r1, j1, r2, j2, ra1, ra2,
-                                              **ex_kw)
+                flagship.extract_queries_step(r1, j1, r2, j2, **ex_kw)
             q_on = {}
             for d in mesh.devices[i]:
                 if d not in q_on:

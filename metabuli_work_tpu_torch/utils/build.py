@@ -8,14 +8,29 @@ library is written to a temporary name and renamed into place, so
 concurrent first uses (test workers) never load a half-written file.
 """
 
+import ctypes
 import os
+import shutil
 import subprocess
 import tempfile
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "torch_kernels")
 NATIVE_DIR = os.path.join(REPO_ROOT, "native")
+CSRC_DIR = os.path.join(REPO_ROOT, "metabuli_work_tpu_torch", "csrc")
+
+# the package's CUDA kernel libraries: name -> (source, headers it
+# includes), under CSRC_DIR; each is built into lib<name>.so
+CUDA_LIBRARIES = {
+    "path_dp_block": ("path_dp.cu", ["path_dp_common.cuh"]),
+    "path_dp_warp": ("path_dp_warp.cu", ["path_dp_common.cuh"]),
+    "extract": ("extract.cu", []),
+}
+_cuda_libs = None
+_cuda_lock = threading.Lock()
 
 
 def build_library(sources, lib_name, cmd_prefix, deps=(), libs=()):
@@ -51,3 +66,36 @@ def build_native(src_name, lib_name, extra_flags=(), libs=()):
     return build_library([src], lib_name,
                          ["g++", "-O2", "-Wall", "-shared", "-fPIC",
                           *extra_flags], libs=libs)
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def cuda_libraries():
+    """The CUDA_LIBRARIES, compiled by nvcc (sm_90a) at first use, all at
+    once in parallel (a first run waits for the slowest build, not for
+    their sum), and loaded with ctypes: {name: CDLL}.  The callers
+    (ops/dp_cuda.py, ops/encode_cuda.py) declare their functions'
+    types."""
+    global _cuda_libs
+    with _cuda_lock:
+        if _cuda_libs is None:
+            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                   "-std=c++17", "-O3", "--fmad=false", "-shared",
+                   "-Xcompiler", "-fPIC"]
+            with ThreadPoolExecutor(len(CUDA_LIBRARIES)) as ex:
+                futs = {name: ex.submit(
+                    build_library, [os.path.join(CSRC_DIR, src)],
+                    f"lib{name}.so", cmd,
+                    deps=[os.path.join(CSRC_DIR, h) for h in headers])
+                    for name, (src, headers) in CUDA_LIBRARIES.items()}
+                _cuda_libs = {name: ctypes.CDLL(f.result())
+                              for name, f in futs.items()}
+        return _cuda_libs

@@ -1,4 +1,6 @@
-"""Torch metamer extraction vs the JAX package's encode_jax, bit-exact."""
+"""Torch metamer extraction vs the JAX package's encode_jax, bit-exact;
+extraction without right-aligned copies; CPU tensors routed to the torch
+body, never to the CUDA kernel's wrapper."""
 
 import numpy as np
 import pytest
@@ -7,7 +9,8 @@ import jax.numpy as jnp
 import torch
 
 from metabuli_work_tpu.ops import encode_jax
-from metabuli_work_tpu_torch.ops import encode_torch
+from metabuli_work_tpu_torch.models import flagship
+from metabuli_work_tpu_torch.ops import encode_cuda, encode_torch
 
 from torch_port_db import one_torch_thread  # noqa: F401  (autouse)
 
@@ -100,3 +103,71 @@ def test_aa_only_extract_batch_matches_jax(syncmer):
         got = sorted(zip(tk[b].numpy()[v].tolist(), tp[b].numpy()[v].tolist()))
         assert got == sorted(zip(km.astype(np.int64).tolist(),
                                  pos.astype(np.int64).tolist()))
+
+
+def _queries(paired, syncmer, win_frac, with_ra):
+    a1, l1 = _reads(31, B=6, L=96)
+    a2, l2 = _reads(32, B=6, L=120)
+    t = torch.from_numpy
+    mate2 = (t(a2), t(l2)) if paired else (None, None)
+    ras = ()
+    if with_ra:
+        ras = (t(encode_torch.right_align(a1, l1)),
+               t(encode_torch.right_align(a2, l2)) if paired else None)
+    return flagship.extract_queries_step(t(a1), t(l1), *mate2, *ras,
+                                         syncmer=syncmer, win_frac=win_frac)
+
+
+@pytest.mark.parametrize("paired", [False, True], ids=["one", "two"])
+@pytest.mark.parametrize("syncmer,win_frac", [(False, 0), (True, 184)],
+                         ids=["plain", "compacted"])
+def test_extract_queries_step_without_ra(paired, syncmer, win_frac):
+    """extract_queries_step with no right-aligned copies (as every flow
+    now calls it) equals what it gives with them, for one and two
+    parts."""
+    got = _queries(paired, syncmer, win_frac, with_ra=False)
+    ref = _queries(paired, syncmer, win_frac, with_ra=True)
+    for a, b in zip(got[:5], ref[:5]):
+        assert torch.equal(a, b)
+    assert got[5] == ref[5] and len(got[5]) == 1 + paired
+    assert int(got[6]) == int(ref[6])
+
+
+def test_cpu_tensors_take_the_torch_body(monkeypatch):
+    """CPU tensors go to the plain torch versions without building or
+    launching the CUDA kernel (no nvcc needed), and the kernel's wrapper
+    refuses them."""
+    def refuse(*a, **k):
+        raise AssertionError("the CUDA extraction wrapper was reached")
+
+    for name in ("cuda_libraries", "build", "_launch", "extract_batch",
+                 "extract_queries"):
+        monkeypatch.setattr(encode_cuda, name, refuse)
+    n = encode_cuda.launches
+    arr, lens = _reads(7)
+    t = lambda: (torch.from_numpy(arr), torch.from_numpy(lens))
+    for kw in (dict(syncmer=True), dict(k=12, aa_only=True),
+               dict(kmer_format=1)):
+        got = encode_torch.extract_batch(*t(), **kw)
+        ref = encode_torch.extract_batch_ref(*t(), **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    got = flagship.extract_queries_step(*t(), *t(), syncmer=True,
+                                        win_frac=184)
+    ref = flagship.extract_queries_step_ref(*t(), *t(), syncmer=True,
+                                            win_frac=184)
+    assert all(torch.equal(a, b) for a, b in zip(got[:5], ref[:5]))
+    values, taxids, species = flagship.synthetic_db(256)
+    out = flagship.classify_step(arr, lens, values, taxids, species,
+                                 device="cpu")
+    assert out["seq_id"].shape[0] == arr.shape[0] * 6 * 25
+    assert encode_cuda.launches == n
+    monkeypatch.undo()
+    for fn in (lambda: encode_cuda.extract_batch(
+                   *t(), syncmer=False, smer_len=5, k=8, aa_only=False,
+                   kmer_format=2),
+               lambda: encode_cuda.extract_queries(
+                   [(*t(), 25)], syncmer=False, smer_len=5, kmer_format=2,
+                   compact=False)):
+        with pytest.raises(ValueError, match="unsupported device cpu"):
+            fn()
+    assert encode_cuda.launches == n

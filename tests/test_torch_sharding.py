@@ -168,9 +168,7 @@ def _torch_rows(mesh, d):
     Bl = len(d["r1"]) // mesh.shape["dp"]
     t = lambda a, i: None if a is None else torch.from_numpy(
         np.ascontiguousarray(a[i * Bl:(i + 1) * Bl]))
-    ra = lambda r, l: None if r is None else right_align(r, l)
-    return {i: (t(d["r1"], i), t(d["l1"], i), t(d["r2"], i), t(d["l2"], i),
-                t(ra(d["r1"], d["l1"]), i), t(ra(d["r2"], d["l2"]), i))
+    return {i: (t(d["r1"], i), t(d["l1"], i), t(d["r2"], i), t(d["l2"], i))
             for i in mesh.local_rows}
 
 

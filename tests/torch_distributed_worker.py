@@ -13,12 +13,19 @@ the long-read row cap).
 """
 
 import sys
+from datetime import timedelta
+
+# seconds a process waits at the closing barrier for its peers: well
+# above the gap between two processes' ends (one may redo a long read
+# from chunks), below the launcher's 300-second limit a process
+BARRIER_S = 120
 
 
 def main():
     port, rank, nproc, db_dir, reads, out_json, cells = sys.argv[1:8]
     seq_mode = int(sys.argv[8]) if len(sys.argv) > 8 else 1
     import numpy as np
+    import torch.distributed as dist
 
     from metabuli_work_tpu_torch.classify.pipeline import (Classifier,
                                                            ClassifyParams)
@@ -43,6 +50,12 @@ def main():
     print(f"process {rank}: {len(records)} reads, "
           f"{clf.timer.counts['retry']} retries, "
           f"{clf.timer.counts['long_score']} long reads", flush=True)
+    # leave the group together: a process that exits with its gloo group
+    # alive while its peer still works can abort in the group's teardown.
+    # The barrier names a peer that never arrives (one that died) within
+    # BARRIER_S instead of waiting for the group's 30-minute default.
+    dist.monitored_barrier(timeout=timedelta(seconds=BARRIER_S))
+    dist.destroy_process_group()
 
 
 if __name__ == "__main__":
