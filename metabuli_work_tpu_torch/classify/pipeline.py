@@ -73,7 +73,9 @@ Tracing: every span is opened through the classifier's current
 `timer.stage(name)` (utils/timing.StageTimer, which lists the spans),
 looked up when the span opens, so a timer put in its place after
 construction sees them all.  Set-up: `db_load`, `layout`, `upload`
-(their seconds also kept in Classifier.setup_times).  A batch:
+(their seconds also kept in Classifier.setup_times).  Streamed, every
+range upload is one more `upload` span (_RangeStream.upload), holding
+`range_wait` and `range_stage` on the card.  A batch:
 `input` or `pad`, then `dispatch` with `prep`, `extract`, `probe`,
 `paths` (and `assign` on the device-assign flow) nested in it, on the
 resident, streamed, mesh and device-assign flows alike (the host-match
@@ -223,11 +225,11 @@ class _RangeStream:
         self.sweeps = 0             # counted by the callers, one per sweep
         self.bytes_uploaded = 0
         self.copy_ms = 0.0          # device time of the settled uploads
-        self._stage = self._pending = None
+        self._pinned = self._pending = None
         if device.type == "cuda":
-            self._stage = [tuple(torch.empty(a.shape[1:], dtype=a.dtype,
-                                             pin_memory=True)
-                                 for a in (quads, hts)) for _ in range(2)]
+            self._pinned = [tuple(torch.empty(a.shape[1:], dtype=a.dtype,
+                                              pin_memory=True)
+                                  for a in (quads, hts)) for _ in range(2)]
             self._pending = [None, None]
 
     def _settle(self, s):
@@ -238,36 +240,46 @@ class _RangeStream:
             self.copy_ms += t0.elapsed_time(t1)
             self._pending[s] = None
 
-    def upload(self, r):
-        """(quad_r, hash_r) of range r on the device.  The caller drops
-        both before it asks for the next range: all ranges have one
+    def upload(self, r, stage):
+        """(quad_r, hash_r) of range r on the device, inside one `upload`
+        span of `stage` (the classifier's timer.stage).  On the card the
+        span holds `range_wait` (the wait for the staging buffer's
+        previous copy) and `range_stage` (the range's copy into it), and
+        then launches the host-to-device copies.  The caller drops both
+        tensors before it asks for the next range: all ranges have one
         shape, so the allocator hands the same block out again and one
         range at a time lives on the device."""
-        if self._stage is None:
-            return self.quads[r], self.hts[r]
-        s = r % 2
-        self._settle(s)
-        stage = self._stage[s]
-        stage[0].copy_(self.quads[r])
-        stage[1].copy_(self.hts[r])
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        stream = torch.cuda.current_stream(self.device)
-        t0.record(stream)
-        out = tuple(a.to(self.device, non_blocking=True) for a in stage)
-        t1.record(stream)
-        self._pending[s] = (t0, t1)
-        self.bytes_uploaded += self.range_bytes
-        return out
+        with stage("upload"):
+            if self._pinned is None:
+                return self.quads[r], self.hts[r]
+            s = r % 2
+            with stage("range_wait"):
+                self._settle(s)
+            pinned = self._pinned[s]
+            with stage("range_stage"):
+                pinned[0].copy_(self.quads[r])
+                pinned[1].copy_(self.hts[r])
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            stream = torch.cuda.current_stream(self.device)
+            t0.record(stream)
+            out = tuple(a.to(self.device, non_blocking=True) for a in pinned)
+            t1.record(stream)
+            self._pending[s] = (t0, t1)
+            self.bytes_uploaded += self.range_bytes
+            return out
 
     def stats(self):
         """Sweeps, bytes uploaded and the device seconds their copies
-        took, so far (waits for the copies in flight)."""
-        if self._stage is not None:
+        took, so far (waits for the copies in flight), and the ranges
+        held and the bytes of one."""
+        if self._pinned is not None:
             for s in range(2):
                 self._settle(s)
         return {"sweeps": self.sweeps, "bytes": self.bytes_uploaded,
-                "copy_s": self.copy_ms / 1e3}
+                "copy_s": self.copy_ms / 1e3,
+                "range_bytes": self.range_bytes,
+                "n_ranges": int(self.quads.shape[0])}
 
 
 class _FullReads:
@@ -668,6 +680,13 @@ class Classifier:
         else:
             self._width_lo_streak = 0
 
+    def range_stats(self):
+        """The streamed index's _RangeStream.stats() on this process's
+        device (sweeps, bytes uploaded, the device seconds of their
+        copies, the ranges and the bytes of one), or None while no range
+        is held on the host."""
+        return None if self._ranges is None else self._ranges.stats()
+
     def classify_batch(self, names, seqs1, seqs2=None):
         """Classify one batch of string reads: pads (and masks) them as
         the Python reader's batches are, then classify_batch_arrays.
@@ -853,10 +872,9 @@ class Classifier:
                     for rs in self._mesh_ranges.values():
                         rs.sweeps += 1
                     for r in range(self._mesh_n_ranges):
-                        with stage("upload"):
-                            shards = self.mesh.place(
-                                lambda c, d: self._mesh_ranges[d].upload(
-                                    r * n_db + c))
+                        shards = self.mesh.place(
+                            lambda c, d: self._mesh_ranges[d].upload(
+                                r * n_db + c, stage))
                         probe(state, shards)
                         del shards      # one range at a time on the devices
                 else:
@@ -921,8 +939,7 @@ class Classifier:
             self._ranges.sweeps += 1
             with stage("probe"):
                 for r in range(self._n_ranges):
-                    with stage("upload"):
-                        quad_r, hash_r = self._ranges.upload(r)
+                    quad_r, hash_r = self._ranges.upload(r, stage)
                     for p in per:
                         probe_range_step(
                             p["qk"], p["qf"], p["qv"], quad_r, hash_r,
@@ -1514,7 +1531,7 @@ class Classifier:
             acc = new_accumulators(cap, qk.shape[0], self.device)
             self._ranges.sweeps += 1
             for r in range(self._n_ranges):
-                quad_r, hash_r = self._ranges.upload(r)
+                quad_r, hash_r = self._ranges.upload(r, self.timer.stage)
                 probe_range_step(qk, qf, qv, quad_r, hash_r, acc, cap=cap,
                                  kmer_format=self.kmer_format,
                                  hash_log2_rows=self.hash_log2_rows,

@@ -14,7 +14,12 @@ opens these spans on its `timer`:
   Classifier.setup_times): `db_load` (load_index, or the import of a
   reference-format DB), `layout` (LCA tables and the packed probe
   layout, from the pack cache or built), `upload` (the index and tables
-  to the device; while streaming, `upload` is also each range's copy);
+  to the device);
+- per range upload of a streamed index (the range sweep inside
+  `probe`, or `long_probe` for the chunk pass): `upload`, holding on
+  the card `range_wait` (the wait for the pinned staging buffer's
+  previous copy) and `range_stage` (the range's copy into it); the
+  host-to-device copies are launched in `upload` itself;
 - per batch: `input` (classify_file's parse and pad), `pad`
   (classify_batch's padding of string reads), `dispatch` (the enqueue
   of the device step) holding `prep` (crop, right-align and the copies

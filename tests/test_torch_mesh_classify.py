@@ -141,8 +141,10 @@ def test_mesh_stream_equals_resident(db_of, syncmer, seq_mode):
     assert got == ref
     rs = clf._mesh_ranges[torch.device("cpu")]
     assert rs.sweeps == clf.timer.counts["dispatch"] >= 2
+    # one span a shard upload: each of a range's 4 shards, one a db
+    # column, goes through the one CPU device's _RangeStream
     assert clf.timer.counts["upload"] - setup_uploads == \
-        rs.sweeps * clf._mesh_n_ranges
+        rs.sweeps * clf._n_ranges
 
 
 def test_mesh_read_beyond_row_cap(db_of):

@@ -5,7 +5,10 @@ the packed paths and resident tensors); a streamed Classifier (a budget
 forcing >= 4 ranges, two batches a group) equal per read, tax_cnt
 included, to the port's resident run and to the JAX package's streamed
 run, single-end and paired; a read beyond the row cap probed through
-the ranges; the CLI's --hbm-gb."""
+the ranges; the CLI's --hbm-gb; one `upload` span a range a sweep
+(_RangeStream.upload) on the group stream, its retry sweeps and the
+chunk pass, and what _RangeStream.stats() and Classifier.range_stats()
+report."""
 
 import os
 
@@ -311,3 +314,99 @@ def test_cli_hbm_gb_outputs_byte_identical(dbs, capsys):
         for k in ("str", "jstr"):
             with open(os.path.join(outs[k], name), "rb") as f:
                 assert f.read() == ref, (k, name)
+
+
+# ------------------------------------------------------ range-upload spans
+@pytest.mark.parametrize("group", [1, 3], ids=["group1", "group3"])
+@pytest.mark.parametrize("seq_mode", [1, 2], ids=["single", "paired"])
+def test_one_upload_span_a_range_a_sweep(dbs, seq_mode, group, monkeypatch):
+    """A streamed classifier cut into 4 ranges opens one `upload` span a
+    range a sweep (_RangeStream.upload), and answers every read as the
+    resident run does, with groups of 1 and 3 batches and path-width
+    overflows that re-run batches as single-batch retry sweeps.  On the
+    CPU a range is used where it lies: no staging, no wait, no bytes."""
+    d, root = dbs, dbs["root"]
+    paths = (os.path.join(root, "reads.fna"),) if seq_mode == 1 else \
+        (os.path.join(root, "r1.fna"), os.path.join(root, "r2.fna"))
+    kw = dict(PARAMS, seq_mode=seq_mode, batch_size=4)
+    ref = [_res(q) for q in Classifier(d["db"], ClassifyParams(**kw),
+                                       device="cpu").classify_file(*paths)]
+    monkeypatch.setenv("METABULI_STREAM_GROUP", str(group))
+    clf = Classifier(d["db"], ClassifyParams(hbm_budget_gb=d["budget_gb"],
+                                             **kw), device="cpu")
+    assert clf._streaming and clf._n_ranges == 4
+    clf._path_width = 4                 # the first batches overflow it
+    groups = []
+    plain = clf._dispatch_group_stream
+
+    def record(g, **k):
+        groups.append(len(g))
+        return plain(g, **k)
+
+    clf._dispatch_group_stream = record
+    setup_uploads = clf.timer.counts["upload"]     # the set-up's span
+    got = [_res(q) for q in clf.classify_file(*paths)]
+    assert got == ref
+    rs = clf._ranges
+    retries = clf.timer.counts["retry"]
+    assert retries >= 1 and rs.sweeps == len(groups)
+    assert groups[0] == 1 and max(groups) == group
+    assert groups.count(1) >= retries + 1
+    assert clf.timer.counts["upload"] - setup_uploads == \
+        rs.sweeps * clf._n_ranges
+    assert "range_stage" not in clf.timer.counts
+    assert "range_wait" not in clf.timer.counts
+    st = rs.stats()
+    assert st["n_ranges"] == 4 and st["sweeps"] == rs.sweeps
+    assert st["range_bytes"] == rs.range_bytes > 0 and st["bytes"] == 0
+    assert st["range_bytes"] == 4 * (rs.quads[0].numel()
+                                     + rs.hts[0].numel())
+
+
+def test_chunk_pass_upload_spans(dbs):
+    """The chunk pass of a read beyond the row cap probes every range
+    through _RangeStream.upload too: one `upload` span a range a sweep,
+    inside `long_probe`."""
+    d = dbs
+    reads, _ = simulate_long(d["genomes"], [700, 1900, 500], seed=31)
+    path = os.path.join(d["root"], "long_spans.fna")
+    write_reads(path, reads)
+    clf = Classifier(d["db"], ClassifyParams(
+        seq_mode=3, min_score=0.008, min_sp_score=0.0, batch_size=4,
+        hbm_budget_gb=d["budget_gb"]), device="cpu")
+    clf.LONG_ROW_CAP, clf._LONG_CHUNK = 1500, 768
+    assert clf._streaming and clf._n_ranges == 4
+    setup_uploads = clf.timer.counts["upload"]
+    sweeps = []
+    plain = clf._stream_probe_matches
+
+    def record(arr, lens):
+        before = (clf._ranges.sweeps, clf.timer.counts["upload"])
+        m = plain(arr, lens)
+        sweeps.append((clf._ranges.sweeps - before[0],
+                       clf.timer.counts["upload"] - before[1]))
+        return m
+
+    clf._stream_probe_matches = record
+    got = clf.classify_file(path)
+    assert len(got) == 3 and clf.timer.counts["long_probe"] == 1
+    assert sweeps and all(s >= 1 and u == s * 4 for s, u in sweeps)
+    assert clf.timer.counts["upload"] - setup_uploads == \
+        clf._ranges.sweeps * clf._n_ranges
+
+
+def test_range_stats_is_the_streams(dbs):
+    """Classifier.range_stats(): None on a resident index, the host
+    ranges' _RangeStream.stats() on a streamed one."""
+    d = dbs
+    kw = dict(PARAMS, seq_mode=1)
+    resident = Classifier(d["db"], ClassifyParams(**kw), device="cpu")
+    assert resident.range_stats() is None
+    clf = Classifier(d["db"], ClassifyParams(hbm_budget_gb=d["budget_gb"],
+                                             **kw), device="cpu")
+    assert clf.range_stats() == {
+        "sweeps": 0, "bytes": 0, "copy_s": 0.0,
+        "range_bytes": clf._ranges.range_bytes, "n_ranges": 4}
+    clf.classify_file(os.path.join(d["root"], "reads.fna"))
+    st = clf.range_stats()
+    assert st == clf._ranges.stats() and st["sweeps"] >= 1

@@ -4,8 +4,9 @@ the enqueue nested in `dispatch` on every flow, `pad`, the garbage
 collector's `gc` span and the lifetime of its hook, the set-up spans
 kept in Classifier.setup_times, one "stage:<name>" profiler range a
 span while a torch profiler runs, and per-read results unchanged by
-tracing.  One test (the `cuda` marker) holds the program's ranges and
-the device operations on the trace's one clock, on the card."""
+tracing.  Two tests (the `cuda` marker) run on the card: the program's
+ranges and the device operations on the trace's one clock, and a
+streamed index's host-to-device copies owned by its `upload` spans."""
 
 import contextlib
 import gc
@@ -290,3 +291,58 @@ def test_probe_ops_on_the_ranges_clock(card, data):
                     (d.name(), d.start_ns() - r.start_ns(), host.name())
                 checked += 1
     assert len(probes) >= 3 and checked >= len(probes)
+
+
+@pytest.mark.cuda
+def test_streamed_copies_owned_by_upload(card, data, monkeypatch):
+    """On the card, under a profiler: a streamed classifier (4 ranges,
+    one batch a sweep) launches each range's two host-to-device copies
+    inside its `upload` span, their innermost stage, and nothing else
+    there; each `upload` range holds one `range_wait` and one
+    `range_stage` range."""
+    index = load_index(data["db"])
+    monkeypatch.setenv("METABULI_STREAM_GROUP", "1")
+    clf = Classifier(data["db"], ClassifyParams(
+        seq_mode=1, hbm_budget_gb=(16 * index.size / 3.5) * 2 / (1 << 30),
+        **PARAMS), device="cuda")
+    assert clf._streaming and clf._n_ranges == 4
+    clf.classify_file(data["path"])
+    sweeps = clf._ranges.stats()["sweeps"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        clf.classify_file(data["path"])
+        torch.cuda.synchronize()
+    sweeps = clf._ranges.stats()["sweeps"] - sweeps
+    from torch.autograd import DeviceType
+
+    ev = list(prof.profiler.kineto_results.events())
+    cpu = [e for e in ev if e.device_type() != DeviceType.CUDA]
+    stages = [e for e in cpu if e.name().startswith("stage:")]
+
+    def inside(e, r):
+        return r.start_thread_id() == e.start_thread_id() \
+            and r.start_ns() <= e.start_ns() <= r.end_ns()
+
+    def innermost(e):
+        held = [r for r in stages if inside(e, r)]
+        return max(held, key=lambda r: r.start_ns()).name()[6:] \
+            if held else None
+
+    uploads = [r for r in stages if r.name() == "stage:upload"]
+    assert sweeps >= 3 and len(uploads) == sweeps * 4
+    for u in uploads:
+        within = sorted(r.name() for r in stages if r is not u
+                        and r.name() != "stage:gc" and inside(r, u))
+        assert within == ["stage:range_stage", "stage:range_wait"]
+    by_id = {e.correlation_id(): e for e in cpu
+             if e.correlation_id() and not e.linked_correlation_id()}
+    owned = []
+    for d in ev:
+        if d.device_type() != DeviceType.CUDA \
+                or d.name().startswith("stage:"):
+            continue
+        host = by_id.get(d.linked_correlation_id())
+        if host is not None and innermost(host) == "upload":
+            owned.append(d.name())
+    assert len(owned) == 2 * len(uploads)
+    assert all(n.startswith("Memcpy HtoD") for n in owned), set(owned)
