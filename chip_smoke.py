@@ -26,14 +26,22 @@
    32 rows of log-normal lengths up to 60 kb), each equal to its plain
    torch version on the same tensors, its device ms a launch beside its
    byte bound and the plain version's ms ("extract kernel ..." lines);
+   the probe kernel (csrc/probe.cu) builds with them;
 4. builds (or loads from ~/.cache) a syncmer DB of 8 genomes x 4 Mb in 2
    genera and drives its paths on it through Classifier(device="cuda")
    and classify_file, each after a one-batch warm-up, each with the
    kernels' launch counts set to 0 just before and read just after; each
    path prints the reader it read with (the native C++ reader unless its
-   library did not build):
+   library did not build) and "<path>: N probe kernel launches, M probe
+   spans" (N >= M > 0 on every flow that probes with the AA hash; 0 on
+   the host-match flow and the bucket bisection, whose plain probes run);
    - single-end: 16,384 reads of 150 bp (1% errors, half reverse-
-     complemented), batch 1024;
+     complemented), batch 1024; then the probe kernel at the benchmark
+     cells' shapes (batches of reads drawn from the smoke genomes, as
+     the extraction kernel's shapes, at cap 20) on the single-end
+     classifier's wide index, equal to the plain torch body there, its
+     device ms a launch beside its byte bound and the plain body's ms
+     ("probe kernel ..." lines);
    - paired-end (--seq-mode 2): 8,192 pairs of 2 x 150 bp, insert
      280-420, mate 2 reverse-complemented, batch 1024; the path DP must
      launch twice per dispatched batch (once per mate);
@@ -701,7 +709,7 @@ def drive(dp_cuda, clf, run):
     they count into the run's peak memory) for the timings.  `clf` is the
     classifier `run` uses, or a function that returns it after the run
     (a classifier that `run` makes, whose timer starts at zero)."""
-    from metabuli_work_tpu_torch.ops import encode_cuda
+    from metabuli_work_tpu_torch.ops import encode_cuda, match_cuda
 
     calls, first = [], {}
     launch = dp_cuda.path_dp_blocked
@@ -722,7 +730,7 @@ def drive(dp_cuda, clf, run):
     dp_cuda.path_dp_blocked = capture
     dp_cuda.launches = dp_cuda.warp_launches = 0
     dp_cuda.block_launches = dp_cuda.plain_cuda_calls = 0
-    encode_cuda.launches = 0
+    encode_cuda.launches = match_cuda.launches = 0
     t0 = time.perf_counter()
     try:
         results = run()
@@ -731,6 +739,7 @@ def drive(dp_cuda, clf, run):
         dp_cuda.path_dp_blocked = launch
     dt = time.perf_counter() - t0
     extract_launches = encode_cuda.launches
+    probe_launches = match_cuda.launches
     if callable(clf):
         clf = clf()
     return {"results": results, "dt": dt, "calls": calls, "first": first,
@@ -738,6 +747,9 @@ def drive(dp_cuda, clf, run):
             "counts": variant_counts(dp_cuda),
             "extract_launches": extract_launches,
             "extract_spans": clf.timer.counts["extract"],
+            "probe_launches": probe_launches,
+            "probe_spans": clf.timer.counts["probe"],
+            "hashed": probes_with_hash(clf),
             "dispatches": clf.timer.counts["dispatch"],
             "peak": torch.cuda.max_memory_allocated(), "base": base,
             "reader": clf.reader, "timer": clf.timer}
@@ -764,6 +776,7 @@ def check_launches(name, r, dp_cuda):
         f"{name}: a launch at cap <= 32 did not go to the warp variant"
     assert counts["block"] == r["launches"] - n_small
     check_extract(name, r)
+    check_probe(name, r)
 
 
 def check_extract(name, r):
@@ -775,6 +788,33 @@ def check_extract(name, r):
     print(f"{name}: {n} extraction kernel launches, {spans} extract spans")
     assert n > 0 and n >= spans, \
         f"{name}: {n} extraction kernel launches for {spans} extract spans"
+
+
+def probes_with_hash(clf):
+    """Whether the classifier's probe takes the probe kernel: the path-DP
+    flow with the AA hash, resident, streamed or on a mesh.  The host-
+    match flow's raw-array probe and the bucket bisection (no hash) run
+    the plain torch bodies."""
+    if not clf.use_device_dp:
+        return False
+    if clf._streaming or clf.mesh is not None:
+        return True
+    return clf._probe_kw["hash_table"] is not None
+
+
+def check_probe(name, r):
+    """The run probed on the card through the probe kernel, at least once
+    a `probe` span (a span probes once a range when streamed, once a cell
+    on the mesh), or, on a flow that does not probe with the hash, never
+    launched it."""
+    n, spans = r["probe_launches"], r["probe_spans"]
+    print(f"{name}: {n} probe kernel launches, {spans} probe spans"
+          f"{'' if r['hashed'] else ' (no hash probe on this flow)'}")
+    if r["hashed"]:
+        assert n > 0 and n >= spans, \
+            f"{name}: {n} probe kernel launches for {spans} probe spans"
+    else:
+        assert n == 0, f"{name}: the probe kernel ran on a plain-probe flow"
 
 
 def check_path(name, r, n_reads, src, dp_cuda, card, unit="reads",
@@ -1862,6 +1902,104 @@ def extract_phase(card):
             "bound_by": "bytes", "library_ms": None, "shapes": shapes}
 
 
+PROBE_CAP = 20                     # the gtdb40 cells' settled cap
+
+
+def probe_inputs(G, rng, clf, name, B, lmaxes):
+    """The CUDA query tensors (qk, qf, qv) of one benchmark shape,
+    extracted on the card from reads drawn from the smoke genomes: 150-bp
+    reads (or pairs) padded to 168, or log-normal long reads of 1-60 kb
+    padded to their length bucket."""
+    from metabuli_work_tpu_torch.classify.pipeline import _bucket_len
+    from metabuli_work_tpu_torch.models import flagship
+
+    if name == "paired":
+        mates = simulate_pairs(G, rng, B, READ_LEN)[:2]
+    elif name == "api":
+        mates = simulate_reads(G, rng, B, READ_LEN)[:1]
+    else:
+        lens = np.clip(rng.lognormal(np.log(8000), 0.6, B), 1000,
+                       60_000).astype(np.int32)
+        mates = [[simulate_reads(G, rng, 1, int(n))[0][0] for n in lens]]
+    parts = []
+    for rows, lmax in zip(mates, lmaxes):
+        lens = np.array([len(r) for r in rows], np.int32)
+        lmax = lmax or _bucket_len(int(lens.max()))
+        arr = np.full((B, lmax), ord("N"), np.uint8)
+        for b, r in enumerate(rows):
+            arr[b, :len(r)] = r
+        parts += [torch.from_numpy(arr).cuda(), torch.from_numpy(lens).cuda()]
+    qk, _, qf, _, qv, _, _ = flagship.extract_queries_step(
+        *parts, syncmer=clf.syncmer, smer_len=clf.smer_len,
+        kmer_format=clf.kmer_format, win_frac=clf._win_frac)
+    return qk, qf, qv, [p.shape[1] for p in parts[::2]]
+
+
+def probe_phase(clf, G, card):
+    """The probe kernel (csrc/probe.cu) at the benchmark cells' shapes
+    (EXTRACT_SHAPES' batches of reads drawn from the smoke genomes, cap
+    PROBE_CAP) on the resident wide index of `clf`: equal to the plain
+    torch body on the same CUDA tensors (sel and overflow everywhere, the
+    five fields where sel holds, 0 elsewhere); the kernel's device ms a
+    call (back to back) beside its byte bound and the plain body's ms a
+    call.  The bound counts a 512-byte hash row and cap 16-byte window
+    entries read and cap 21-byte slots written for each valid query; the
+    kernel also writes the cap slots of every other query and reads 13
+    bytes a query, and the bound with those is given beside it.  Returns
+    the kernels-line entry."""
+    from metabuli_work_tpu_torch.ops import match_cuda, match_torch
+
+    rng = np.random.default_rng(18)
+    cap, kf, kw = PROBE_CAP, clf.kmer_format, clf._probe_kw
+    assert kw["hash_table"] is not None and clf.db_quad.shape[1] == 128
+    shapes = []
+    for name, B, lmaxes in EXTRACT_SHAPES:
+        qk, qf, qv, rows = probe_inputs(G, rng, clf, name, B, lmaxes)
+        args = (qk, qf, qv, clf.db_quad, cap, kf)
+        call = lambda: match_torch.match_kmers_quad(*args, **kw)
+        plain = lambda: match_torch.match_kmers_quad_ref(*args, **kw)
+        got, ref = call(), plain()
+        torch.cuda.synchronize()
+        sel = ref["sel"]
+        assert torch.equal(got["sel"], sel), f"probe kernel sel ({name})"
+        assert int(got["overflow"]) == int(ref["overflow"])
+        for k in ("hamming", "rh", "taxid", "species", "dna_enc"):
+            assert torch.equal(got[k], torch.where(sel, ref[k], 0)), \
+                f"probe kernel != plain ({name}, {k})"
+        n0 = match_cuda.launches
+        ms = time_cuda(call, 50, queue_ahead=True)
+        torch.cuda.synchronize()
+        assert match_cuda.launches - n0 == 51, "one launch a call"
+        plain_ms = time_cuda(plain, 3)
+        torch.cuda.synchronize()
+        n, valid = qk.numel(), int(qv.sum())
+        valid_bytes = valid * (512 + cap * (16 + 21))
+        all_bytes = valid_bytes + (n - valid) * cap * 21 + n * 13
+        bound_ms = valid_bytes / HBM_BYTES_PER_S * 1e3
+        all_ms = all_bytes / HBM_BYTES_PER_S * 1e3
+        print(f"probe kernel {name} (B={B}, rows of {rows} bases, {n} "
+              f"slots, {valid} valid, cap {cap}, {int(sel.sum())} selected, "
+              f"overflow {int(ref['overflow'])}): {ms:.4f} ms/launch, byte "
+              f"bound {bound_ms:.4f} ms ({valid_bytes} B of the valid "
+              f"slots), {all_ms:.4f} ms with every slot's outputs "
+              f"({all_bytes} B), plain body {plain_ms:.3f} ms; exact on "
+              f"{card}")
+        shapes.append({"path": name, "B": B, "rows": rows, "slots": n,
+                       "valid": valid, "cap": cap, "ms": ms,
+                       "bound_ms": bound_ms, "bound_all_ms": all_ms,
+                       "bound_by": "bytes", "plain_ms": plain_ms,
+                       "max_abs_err": 0})
+        del got, ref, sel, qk, qf, qv
+    first = shapes[0]
+    return {"name": "probe", "variant": None, "path": first["path"],
+            "route": "cuda",
+            "source": "metabuli_work_tpu_torch/csrc/probe.cu",
+            "replaces": None, "launches": None,
+            "max_abs_err": 0, "ms": first["ms"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "shapes": shapes}
+
+
 def readgroup_phase(fa, src, src2, se_results, card, common):
     """run_grouping of the single-end reads and of the pairs (native
     union-find) against the common-k-mer DB of the smoke genomes
@@ -2478,6 +2616,9 @@ def dist_worker(argv):
     assert r["launches"] == r["dispatches"] > 0     # one row, one part
     assert r["extract_launches"] == r["extract_spans"] == r["dispatches"], \
         (r["extract_launches"], r["extract_spans"], r["dispatches"])
+    # one probe a cell of the process's row (2 db columns) a dispatch
+    assert r["probe_launches"] == 2 * r["probe_spans"] > 0, \
+        (r["probe_launches"], r["probe_spans"])
     max_err = {"warp": 0, "block": 0}
     for key, (args, kw) in r["first"].items():
         ref = dp_cuda.path_dp_blocked_ref(*args, **kw)
@@ -2488,6 +2629,7 @@ def dist_worker(argv):
         json.dump({"records": records(r["results"]),
                    "launches": r["launches"], "counts": r["counts"],
                    "extract_launches": r["extract_launches"],
+                   "probe_launches": r["probe_launches"],
                    "dispatches": r["dispatches"], "dt": r["dt"],
                    "merged": clf.mesh_merged_bytes - m0,
                    "max_err": max_err}, f)
@@ -2620,10 +2762,12 @@ def smoke(prep, prep_dir, profiled, seed):
             profile_path("single-end",
                          lambda: clf.classify_file(fa("reads.fna")),
                          N_READS, card, N_READS // BATCH)
+        lap("single-end")
+        probe_kernel = probe_phase(clf, G, card)
         clf = None
         torch.cuda.empty_cache()
 
-        lap("single-end")
+        lap("probe kernel")
 
         # ------------------------------------------------ paired-end
         m1, m2, src2 = simulate_pairs(G, np.random.default_rng(2), N_PAIRS,
@@ -3039,6 +3183,7 @@ def smoke(prep, prep_dir, profiled, seed):
         for part in dist_parts:
             assert part["records"] and part["launches"] > 0
             assert part["extract_launches"] > 0
+            assert part["probe_launches"] > 0
             for k, v in part["records"].items():
                 assert k not in merged, f"read {k} scored by two processes"
                 merged[k] = v
@@ -3284,6 +3429,14 @@ def smoke(prep, prep_dir, profiled, seed):
     by_path["distributed"] = sum(p["extract_launches"] for p in dist_parts)
     assert all(by_path.values()), f"extraction kernel not launched: {by_path}"
     kernels.append(dict(extract_kernel, launches=sum(by_path.values()),
+                        launches_by_path=by_path))
+    # the probe kernel's, likewise (0 on the flows without a hash probe)
+    by_path = {p: r["probe_launches"] for p, r in runs.items()}
+    by_path["distributed"] = sum(p["probe_launches"] for p in dist_parts)
+    assert all(n > 0 for p, n in by_path.items()
+               if p == "distributed" or runs[p]["hashed"]), \
+        f"probe kernel not launched: {by_path}"
+    kernels.append(dict(probe_kernel, launches=sum(by_path.values()),
                         launches_by_path=by_path))
     prep.close()
     lap("main-path parity and timings")

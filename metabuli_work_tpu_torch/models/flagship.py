@@ -36,7 +36,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops import (assign_torch, compact_torch, dp_cuda, dp_torch,
-                   encode_cuda, encode_torch, match_torch)
+                   encode_cuda, encode_torch, match_cuda, match_torch)
 
 
 def _no_stage(name):
@@ -274,8 +274,15 @@ def probe_range_step(qk, qf, qv, quad_r, hash_r, acc, *, cap: int,
     """One range pass: probe one index range (wide rows or narrow entry
     rows, packing.shard_quad_index; both carry the hash) and fold its
     candidates into `acc` IN PLACE (a fresh set per pass would multiply
-    the peak by the number of live temporaries).  Returns acc."""
-    out = match_torch.match_kmers_quad(
+    the peak by the number of live temporaries).  On the card the probe
+    kernel folds them itself, in one launch; on the CPU the plain probe's
+    result is added where sel holds.  Returns acc."""
+    if qk.is_cuda:
+        return match_cuda.probe(
+            qk, qf, qv, quad_r, hash_r, cap=cap, kmer_format=kmer_format,
+            log2_rows=hash_log2_rows, chain=hash_chain,
+            m=match_torch.entry_limit(quad_r), acc=acc)
+    out = match_torch.match_kmers_quad_ref(
         qk, qf, qv, quad_r, cap=cap, kmer_format=kmer_format,
         hash_table=hash_r, hash_log2_rows=hash_log2_rows,
         hash_chain=hash_chain)

@@ -9,7 +9,9 @@ Two probes share the hamming filter:
   probe is a point lookup of every query's AA run and a gather of its
   first ``cap`` run entries.  The narrow layouts (64-byte block rows,
   run starts aligned or not, entry-row shards) and the bucket bisection
-  in place of the hash are the same probe over other rows.
+  in place of the hash are the same probe over other rows.  On the card
+  the probe with the hash is one launch of csrc/probe.cu
+  (ops/match_cuda.py); match_kmers_quad_ref is its plain version.
 * match_kmers / match_kmers_cm (the host-match flow): the raw sorted
   arrays (values, taxids, species).  The run start comes from one
   bucket-pair gather plus a short bisection on the low 32 AA bits
@@ -38,6 +40,7 @@ import numpy as np
 import torch
 
 from ..index.packing import DNA_BITS, EF_BITS, _HASH_MUL1, _HASH_MUL2
+from . import match_cuda
 from .genetic_code import HAMMING_TABLE, KMER_LEN
 
 _M32 = 0xFFFFFFFF
@@ -110,13 +113,55 @@ def _gather_blocks(db_blk, lo, win: int, aligned: bool):
                         j[:, :, None].expand(win, n, 4))
 
 
+def entry_limit(db_quad, db_m=None) -> int:
+    """M, the entries of a packed index that a window may read (a run
+    never extends past them): db_m where given, else every entry of the
+    [R, 128] wide rows or [S, 4] entry rows; a [R, 16] block-row index
+    needs db_m."""
+    if db_m is not None:
+        return db_m
+    width = db_quad.shape[1]
+    if width == 16:
+        raise ValueError("a block-row index needs db_m")
+    return db_quad.shape[0] * 32 if width == 128 else db_quad.shape[0]
+
+
 def match_kmers_quad(q_kmers, q_frames, q_valid, db_quad, cap: int,
                      kmer_format: int, hash_table=None,
                      hash_log2_rows: int = 0, hash_chain: int = 0,
                      db_m: int = None, aligned: bool = False,
                      bucket_lo=None, db_aa_lo=None, bucket_shift: int = 0,
-                     bucket_steps: int = 0, lo_override=None):
-    """Probe the packed index — cap-MAJOR layout.
+                     bucket_steps: int = 0):
+    """Probe the packed index — cap-MAJOR layout; arguments and result as
+    match_kmers_quad_ref.
+
+    CUDA tensors with the AA hash take one launch of the probe kernel
+    (ops/match_cuda.py, csrc/probe.cu), which writes 0 in the five value
+    fields wherever sel is false (no consumer reads them there).  CPU
+    tensors, and run starts by bucket bisection (hash_table None, as
+    METABULI_HASH_PROBE=0 asks), run the plain body: the choice follows
+    the inputs, never a failed launch."""
+    if q_kmers.is_cuda and hash_table is not None:
+        return match_cuda.probe(
+            q_kmers, q_frames, q_valid, db_quad, hash_table, cap=cap,
+            kmer_format=kmer_format, log2_rows=hash_log2_rows,
+            chain=hash_chain, m=entry_limit(db_quad, db_m))
+    return match_kmers_quad_ref(
+        q_kmers, q_frames, q_valid, db_quad, cap, kmer_format,
+        hash_table=hash_table, hash_log2_rows=hash_log2_rows,
+        hash_chain=hash_chain, db_m=db_m, aligned=aligned,
+        bucket_lo=bucket_lo, db_aa_lo=db_aa_lo, bucket_shift=bucket_shift,
+        bucket_steps=bucket_steps)
+
+
+def match_kmers_quad_ref(q_kmers, q_frames, q_valid, db_quad, cap: int,
+                         kmer_format: int, hash_table=None,
+                         hash_log2_rows: int = 0, hash_chain: int = 0,
+                         db_m: int = None, aligned: bool = False,
+                         bucket_lo=None, db_aa_lo=None,
+                         bucket_shift: int = 0, bucket_steps: int = 0):
+    """match_kmers_quad in plain torch (the probe kernel's plain version;
+    any device).
 
     db_quad is one of three int32 layouts (packing.py):
     * [R, 128] 512-byte rows (the default wide layout; needs the hash);
@@ -124,12 +169,11 @@ def match_kmers_quad(q_kmers, q_frames, q_valid, db_quad, cap: int,
       count with any alignment padding, is required; `aligned` when run
       starts sit on block boundaries);
     * [S, 4] entry rows (a narrow shard; db_m defaults to S).
-    Run starts come from lo_override, else the AA hash (hash_table: the
-    run length comes with the start, so the window is exactly cap
-    entries and overflow is known from the lookup), else the bucket
-    bisection (bucket_lo, db_aa_lo, bucket_shift, bucket_steps of
-    build_buckets: the window keeps a cap+1'th entry, whose AA match
-    tells overflow).
+    Run starts come from the AA hash (hash_table: the run length comes
+    with the start, so the window is exactly cap entries and overflow is
+    known from the lookup), else the bucket bisection (bucket_lo,
+    db_aa_lo, bucket_shift, bucket_steps of build_buckets: the window
+    keeps a cap+1'th entry, whose AA match tells overflow).
 
     q_kmers int64 [N] metamer bits, q_frames int32 [N], q_valid bool [N].
     Returns a dict of [cap, N] tensors: sel (bool), hamming (int32 sum),
@@ -139,19 +183,10 @@ def match_kmers_quad(q_kmers, q_frames, q_valid, db_quad, cap: int,
     scalar: valid queries whose run exceeds cap).
     """
     width = db_quad.shape[1]
-    if width == 128:
-        M = db_m if db_m is not None else db_quad.shape[0] * 32
-    elif width == 16:
-        if db_m is None:
-            raise ValueError("a block-row index needs db_m")
-        M = db_m
-    else:
-        M = db_m if db_m is not None else db_quad.shape[0]
+    M = entry_limit(db_quad, db_m)
     q_aa = (q_kmers >> DNA_BITS) & _M40
     rlen = None
-    if lo_override is not None:
-        lo = lo_override
-    elif hash_table is not None:
+    if hash_table is not None:
         lo, rlen = _hash_search(q_aa, hash_table, hash_log2_rows,
                                 hash_chain, M)
     else:

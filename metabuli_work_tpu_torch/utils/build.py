@@ -28,6 +28,7 @@ CUDA_LIBRARIES = {
     "path_dp_block": ("path_dp.cu", ["path_dp_common.cuh"]),
     "path_dp_warp": ("path_dp_warp.cu", ["path_dp_common.cuh"]),
     "extract": ("extract.cu", []),
+    "probe": ("probe.cu", []),
 }
 _cuda_libs = None
 _cuda_lock = threading.Lock()
@@ -82,8 +83,8 @@ def cuda_libraries():
     """The CUDA_LIBRARIES, compiled by nvcc (sm_90a) at first use, all at
     once in parallel (a first run waits for the slowest build, not for
     their sum), and loaded with ctypes: {name: CDLL}.  The callers
-    (ops/dp_cuda.py, ops/encode_cuda.py) declare their functions'
-    types."""
+    (ops/dp_cuda.py, ops/encode_cuda.py, ops/match_cuda.py) declare
+    their functions' types."""
     global _cuda_libs
     with _cuda_lock:
         if _cuda_libs is None:

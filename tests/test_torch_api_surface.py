@@ -97,10 +97,13 @@ NOT_CARRIED = [
     # read is cut there); the port's native batches widen to each read's
     # full length (Classifier._widen), so no width changes a result.
     # want_quals makes the reader return the quality rows as a fourth
-    # item, which no scorer of either package reads
+    # item, which no scorer of either package reads.  lo_override hands
+    # match_kmers_quad precomputed run starts; no function of either
+    # package passes it
     ("no caller, no effect on results",
      {("classify/pipeline.py", "ClassifyParams"): {"long_read_chunk"},
-      ("io/native_reader.py", "NativeBatchReader"): {"want_quals"}}),
+      ("io/native_reader.py", "NativeBatchReader"): {"want_quals"},
+      ("ops/match_jax.py", "match_kmers_quad"): {"lo_override"}}),
 ]
 RENAMED = {("utils/timing.py", "maybe_jax_profile"): "maybe_torch_profile"}
 
