@@ -33,8 +33,8 @@
    kernels' launch counts set to 0 just before and read just after; each
    path prints the reader it read with (the native C++ reader unless its
    library did not build) and "<path>: N probe kernel launches, M probe
-   spans" (N >= M > 0 on every flow that probes with the AA hash; 0 on
-   the host-match flow and the bucket bisection, whose plain probes run);
+   spans" (N >= M > 0 on every path-DP flow; 0 on the host-match flow,
+   whose plain probe runs);
    - single-end: 16,384 reads of 150 bp (1% errors, half reverse-
      complemented), batch 1024; then the probe kernel at the benchmark
      cells' shapes (batches of reads drawn from the smoke genomes, as
@@ -146,18 +146,6 @@
      accession-level DB against the updated DB (shared = the
      accession-level DB's distinct values: both extract alike);
    after those, so that every earlier path and phase runs as before them:
-   - narrow probes: the first 4,096 single-end reads through the wide
-     layout and under each probe knob as the classifier reads it when
-     made (METABULI_WIDE_PROBE=0: 64-byte block rows, run starts
-     block-aligned; with METABULI_QUAD_ALIGN_GB=0 unaligned;
-     METABULI_HASH_PROBE=0: the bucket bisection; METABULI_HASH_CHAIN=3),
-     then METABULI_WIDE_PROBE=0 streamed (hbm_budget_gb 0.25: entry-row
-     ranges) and on the 2 x 2 mesh (entry-row shards); every read equal
-     to the wide resident run's (tax_cnt and top_species included); each
-     prints the layout's device bytes against the wide layout's, the
-     aligned padding factor, launches, stage table and reads/s, and the
-     five resident layouts then run 3 times each in turns (reads/s of
-     every run);
    - aa-only extraction: extract_batch(aa_only=True, k=12) on the card
      over the single-end reads, plain and syncmer, equal to the CPU run
      of the same function and, for 256 reads, to the host scanner's
@@ -214,9 +202,8 @@ Host work that only fills a cache a later phase reads runs in spawned
 preparation processes (CPU only) while the card works: the smoke DB and
 its wide layout and host shards during the kernel build and the parity
 cases (the first path waits for all of them); after measure_scaling,
-the ORF DB, the updated DB and its layout, the six narrow, bisection
-and chain-3 layouts, the common-k-mer DB and the high-cap DB, beside
-the reader-to-cli phases.  A phase waits for
+the ORF DB, the updated DB and its layout, the common-k-mer DB and the
+high-cap DB, beside the reader-to-cli phases.  A phase waits for
 what it reads and prints the seconds the preparation took.  The CPU runs
 of the long-read and the high-cap CPU checks run the same way, while the
 card runs the paths after them; each is held against the card's results
@@ -254,7 +241,6 @@ import subprocess
 import sys
 import tempfile
 import time
-from unittest import mock
 
 import numpy as np
 import torch
@@ -749,7 +735,7 @@ def drive(dp_cuda, clf, run):
             "extract_spans": clf.timer.counts["extract"],
             "probe_launches": probe_launches,
             "probe_spans": clf.timer.counts["probe"],
-            "hashed": probes_with_hash(clf),
+            "hashed": clf.use_device_dp,
             "dispatches": clf.timer.counts["dispatch"],
             "peak": torch.cuda.max_memory_allocated(), "base": base,
             "reader": clf.reader, "timer": clf.timer}
@@ -788,18 +774,6 @@ def check_extract(name, r):
     print(f"{name}: {n} extraction kernel launches, {spans} extract spans")
     assert n > 0 and n >= spans, \
         f"{name}: {n} extraction kernel launches for {spans} extract spans"
-
-
-def probes_with_hash(clf):
-    """Whether the classifier's probe takes the probe kernel: the path-DP
-    flow with the AA hash, resident, streamed or on a mesh.  The host-
-    match flow's raw-array probe and the bucket bisection (no hash) run
-    the plain torch bodies."""
-    if not clf.use_device_dp:
-        return False
-    if clf._streaming or clf.mesh is not None:
-        return True
-    return clf._probe_kw["hash_table"] is not None
 
 
 def check_probe(name, r):
@@ -1659,141 +1633,10 @@ def cli_tools_phase(fa, src, ref_dir, upd, acc, removed, card):
           f"{card}")
 
 
-# ------------- narrow and bisection probes, AA-only extraction, read
-# groups, UniRef
-N_NARROW = 4096                  # reads of a narrow-probe phase
-NARROW_TURNS = 3                 # timed runs of each layout, in turns
-NARROW = (
-    ("wide (4,096 reads)", {}),
-    ("narrow aligned", {"METABULI_WIDE_PROBE": "0"}),
-    ("narrow unaligned", {"METABULI_WIDE_PROBE": "0",
-                          "METABULI_QUAD_ALIGN_GB": "0"}),
-    ("bisection", {"METABULI_HASH_PROBE": "0"}),
-    ("hash chain 3", {"METABULI_HASH_CHAIN": "3"}),
-)                                # (the classifier reads them when made)
+# ------------- AA-only extraction, read groups, UniRef
 UNIREF = (20, 10, 10)            # UniRef50 x UniRef90 x UniRef100 clusters
 UNIREF_LEN = (200, 400)          # protein lengths
 AA_LETTERS = np.array(list("ARNDCQEGHILKMFPSTWYV"))
-
-
-def layout_bytes(clf):
-    """Device bytes of a resident classifier's index layout: (rows, the
-    hash table or, for the bisection, its bucket tables)."""
-    size = lambda t: t.numel() * t.element_size() if t is not None else 0
-    kw = clf._probe_kw
-    return (size(clf.db_quad), size(clf.hash_table)
-            + size(kw.get("bucket_lo")) + size(kw.get("db_aa_lo")))
-
-
-def narrow_phases(dp_cuda, classifier, fa, index, ref, src, runs, mesh,
-                  card, packed):
-    """The first N_NARROW single-end reads through each probe layout
-    (NARROW: the probe knobs as the environment gives them when the
-    classifier is made), then the narrow layout streamed (hbm_budget_gb
-    STREAM_GB: entry-row ranges) and on the 2 x 2 mesh (entry-row
-    shards): every read equal to the wide resident run's (tax_cnt and
-    top_species included); the layout's device bytes against the wide
-    one's, the aligned padding factor, launches, stage table and
-    reads/s; then the resident layouts' reads/s in turns.  `packed`:
-    the seconds a preparation process took to pack each layout (the wide
-    one excepted: the single-end path's)."""
-    wide, kept = None, {}
-    for name, env in NARROW:
-        t0 = time.perf_counter()
-        with mock.patch.dict(os.environ, env):
-            clf = classifier(seq_mode=1, batch_size=BATCH, **SHORT)
-        setup = time.perf_counter() - t0
-        clf.classify_file(fa("warm.fna"))
-        r = runs[name] = drive(dp_cuda, clf,
-                               lambda: clf.classify_file(fa("narrow.fna")))
-        assert r["launches"] > 0, f"{name}: the path DP never launched"
-        check_path(name, r, N_NARROW, src[:N_NARROW], dp_cuda, card)
-        same_as(name, "the wide resident run (tax_cnt and top_species "
-                "included)", full_tuples(r["results"]), full_tuples(ref))
-        rows, tables = layout_bytes(clf)
-        wide = wide or (rows, tables, r["dt"])
-        kind = ("wide 512-byte rows" if clf._wide else
-                "64-byte block rows, run starts "
-                + ("block-aligned" if clf._aligned else "unaligned"))
-        probe = (f"AA hash of {clf.hash_table.shape[0]} rows x "
-                 f"{clf.hash_table.shape[1] * 4} B, chain "
-                 f"{clf.hash_chain}" if clf.hash_table is not None else
-                 f"bucket bisection, {clf._probe_kw['bucket_steps']} steps")
-        print(f"{name}: {kind}, {probe}; {clf.db_m} entries for "
-              f"{index.size} metamers (padding factor "
-              f"{clf.db_m / index.size:.4f}); device bytes: rows "
-              f"{rows / 1e6:.1f} MB ({rows / wide[0]:.3f}x the wide rows' "
-              f"{wide[0] / 1e6:.1f} MB), tables {tables / 1e6:.1f} MB (wide "
-              f"{wide[1] / 1e6:.1f} MB), in all {(rows + tables) / 1e6:.1f} "
-              f"MB against {(wide[0] + wide[1]) / 1e6:.1f} MB; setup "
-              f"{setup:.1f} s"
-              + (f" (layout packed in {packed[name]:.1f} s in a preparation "
-                 f"process)" if name in packed else "")
-              + f"; {N_NARROW / r['dt']:.1f} reads/s against the "
-              f"wide run's {N_NARROW / wide[2]:.1f}; on {card}")
-        stage_table(name, clf, card)
-        kept[name] = clf
-        clf = None
-    # the layouts' rates in turns, all classifiers resident (one run of
-    # a layout is a few batches: host noise between phases swamps it)
-    rates = {name: [] for name in kept}
-    for _ in range(NARROW_TURNS):
-        for name, clf in kept.items():
-            t0 = time.perf_counter()
-            clf.classify_file(fa("narrow.fna"))
-            torch.cuda.synchronize()
-            rates[name].append(N_NARROW / (time.perf_counter() - t0))
-    for name, rs in rates.items():
-        print(f"{name}: {', '.join(f'{x:.1f}' for x in rs)} reads/s in "
-              f"{NARROW_TURNS} turns with the other layouts (median "
-              f"{float(np.median(rs)):.1f}); on {card}")
-    kept = clf = None
-    torch.cuda.empty_cache()
-
-    env = dict(NARROW[1][1])
-    for name, kw in (("narrow streamed", {"hbm_budget_gb": STREAM_GB}),
-                     ("narrow mesh", {"mesh": mesh})):
-        t0 = time.perf_counter()
-        with mock.patch.dict(os.environ, env):
-            clf = classifier(seq_mode=1, batch_size=BATCH, **SHORT, **kw)
-        setup = time.perf_counter() - t0
-        if "mesh" in kw:
-            shard, ht = clf._cells[0][0]
-            assert clf.mesh is mesh and not clf._mesh_stream
-            assert shard.shape[1] == 4, "narrow mesh: not entry-row shards"
-            shape = (f"{len(clf._cells[0])} shards of {shard.shape[0]} entry "
-                     f"rows of 16 B, hash rows of {ht.shape[1] * 4} B")
-        else:
-            rs = clf._ranges
-            assert clf._streaming and clf._n_ranges >= 4
-            assert rs.quads.shape[2] == 4, "narrow streamed: not entry rows"
-            shape = (f"{clf._n_ranges} ranges of {rs.quads.shape[1]} entry "
-                     f"rows of 16 B ({rs.range_bytes / 1e6:.1f} MB with the "
-                     f"hash)")
-            up0 = rs.stats()
-        clf.classify_file(fa("warm.fna"))
-        r = runs[name] = drive(dp_cuda, clf,
-                               lambda: clf.classify_file(fa("narrow.fna")))
-        assert r["launches"] > 0, f"{name}: the path DP never launched"
-        check_path(name, r, N_NARROW, src[:N_NARROW], dp_cuda, card)
-        same_as(name, "the wide resident run (tax_cnt and top_species "
-                "included)", full_tuples(r["results"]), full_tuples(ref))
-        extra = ""
-        if "mesh" in kw:
-            assert r["launches"] == 2 * r["dispatches"]
-        else:
-            up1 = clf._ranges.stats()
-            extra = (f"; {up1['sweeps'] - up0['sweeps']} sweeps, "
-                     f"{(up1['bytes'] - up0['bytes']) / 1e6:.1f} MB uploaded")
-        print(f"{name}: {shape}, hash chain {clf.hash_chain}; setup "
-              f"{setup:.1f} s (layout packed in {packed[name]:.1f} s in a "
-              f"preparation process); {N_NARROW / r['dt']:.1f} reads/s "
-              f"against the "
-              f"wide resident run's {N_NARROW / wide[2]:.1f}{extra}; on "
-              f"{card}")
-        stage_table(name, clf, card)
-        clf = None
-        torch.cuda.empty_cache()
 
 
 def aa_extract_phase(reads, card):
@@ -2480,9 +2323,9 @@ def prep_smoke_db():
 
 def prep_layouts(layouts):
     """Packs the index layouts of classifiers made as the phases make
-    them (label, probe knobs, ClassifyParams extras, on a 2 x 2 mesh),
-    on the CPU: the packing is the same on every device, so the card's
-    classifiers then map the cached layouts.  Waits for the smoke DB."""
+    them (label, ClassifyParams extras, on a 2 x 2 mesh), on the CPU:
+    the packing is the same on every device, so the card's classifiers
+    then map the cached layouts.  Waits for the smoke DB."""
     from metabuli_work_tpu_torch.classify.pipeline import (Classifier,
                                                            ClassifyParams)
     from metabuli_work_tpu_torch.parallel.sharding import make_mesh
@@ -2491,13 +2334,12 @@ def prep_layouts(layouts):
         time.sleep(0.5)
     index, _, _ = build_or_load_db()
     took = {}
-    for label, env, kw, on_mesh in layouts:
+    for label, kw, on_mesh in layouts:
         t0 = time.perf_counter()
-        with mock.patch.dict(os.environ, env):
-            Classifier.from_memory(
-                index, ClassifyParams(seq_mode=1, batch_size=BATCH, **SHORT,
-                                      **kw), device="cpu",
-                mesh=make_mesh(devices=["cpu"] * 4) if on_mesh else None)
+        Classifier.from_memory(
+            index, ClassifyParams(seq_mode=1, batch_size=BATCH, **SHORT,
+                                  **kw), device="cpu",
+            mesh=make_mesh(devices=["cpu"] * 4) if on_mesh else None)
         took[label] = time.perf_counter() - t0
     return {"layouts": took}
 
@@ -2688,10 +2530,10 @@ def smoke(prep, prep_dir, profiled, seed):
     # kernels build and the parity cases run, all before the first path
     prep.start(("smoke db", prep_smoke_db, ()),
                ("wide layout", prep_layouts,
-                ([("wide", {}, {}, False)],)))
+                ([("wide", {}, False)],)))
     prep.start(("4 shards", prep_layouts,
-                ([("4 shards", {}, {"hbm_budget_gb": STREAM_GB}, False)],)))
-    prep.start(("2 shards", prep_layouts, ([("2 shards", {}, {}, True)],)))
+                ([("4 shards", {"hbm_budget_gb": STREAM_GB}, False)],)))
+    prep.start(("2 shards", prep_layouts, ([("2 shards", {}, True)],)))
 
     t0 = time.perf_counter()
     dp_cuda.build()
@@ -3232,23 +3074,12 @@ def smoke(prep, prep_dir, profiled, seed):
 
         lap("measure_scaling")
 
-        # the later phases' DBs and layouts, made while the card runs the
-        # phases before them (a process each for A, B, C)
-        narrow_env = dict(NARROW)
-        aligned = narrow_env["narrow aligned"]
+        # the later phases' DBs, made while the card runs the phases
+        # before them
         prep.start(("orf db", prep_orf_db, (prep_dir,)),
-                   ("updated db", prep_updated_db, (prep_dir,)),
-                   ("narrow layouts A", prep_layouts,
-                    ([("narrow aligned", aligned, {}, False)],)))
-        prep.start(("narrow layouts B", prep_layouts,
-                    ([(n, narrow_env[n], {}, False) for n in
-                      ("narrow unaligned", "bisection", "hash chain 3")],)),
-                   ("common db", prep_common_db, (prep_dir,)),
+                   ("updated db", prep_updated_db, (prep_dir,)))
+        prep.start(("common db", prep_common_db, (prep_dir,)),
                    ("highcap db", prep_highcap_db, ()))
-        prep.start(("narrow layouts C", prep_layouts,
-                    ([("narrow streamed", aligned,
-                       {"hbm_budget_gb": STREAM_GB}, False),
-                      ("narrow mesh", aligned, {}, True)],)))
 
         # ------ the native reader, reference-format DBs, --em, the CLI
         # (after every earlier path, so those run as they did before)
@@ -3299,17 +3130,9 @@ def smoke(prep, prep_dir, profiled, seed):
 
         lap("orf build to cli tools")
 
-        # ---- the narrow and bisection probes, AA-only extraction, read
-        # groups, UniRef (after every earlier path and phase)
+        # ---- AA-only extraction, read groups, UniRef (after every
+        # earlier path and phase)
         took = [time.perf_counter()]
-        write_fasta(fa("narrow.fna"), reads[:N_NARROW])
-        packed = {}
-        for part in "ABC":
-            packed.update(prep.result(f"narrow layouts {part}")["layouts"])
-        narrow_phases(dp_cuda, classifier, fa, index,
-                      runs["single-end"]["results"][:N_NARROW], src, runs,
-                      mesh, card, packed)
-        took.append(time.perf_counter())
         aa_extract_phase(reads, card)
         took.append(time.perf_counter())
         readgroup_phase(fa, src, src2, runs["single-end"]["results"], card,
@@ -3319,11 +3142,11 @@ def smoke(prep, prep_dir, profiled, seed):
         took.append(time.perf_counter())
         print("phase seconds: " + ", ".join(
             f"{n} {b - a:.1f}" for n, a, b in zip(
-                ("narrow probes", "aa-only extraction", "read groups",
-                 "uniref"), took, took[1:])))
+                ("aa-only extraction", "read groups", "uniref"), took,
+                took[1:])))
         torch.cuda.empty_cache()
 
-        lap("narrow probes to uniref")
+        lap("aa-only extraction to uniref")
 
         # ---- a many-species DB: every launch the cap > 32 kernel (after
         # every earlier path and phase)

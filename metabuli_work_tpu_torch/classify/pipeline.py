@@ -17,7 +17,7 @@ copy is a non-blocking copy into pinned memory behind a CUDA event.
 
 The reference's match-buffer-overflow retry (matchPerKmer += 4 and
 re-run, Classifier.cpp:127-131) becomes the per-batch overflow-retry
-ladder in _finish_dp_phase1.
+ladder of the path-DP finishes (_climb_ladder).
 
 With min_cons_cnt < 2 the path DP's validity domain ends, and the
 host-match flow runs instead: the device extracts, probes the raw
@@ -55,15 +55,10 @@ Under --em every read keeps its top species scores (ReadResult.
 species_scores) for classify/em.run_em, so the device-assign flow, which
 carries none, stays off.
 
-The probe's index layout is chosen when the classifier is made, from
-the JAX package's knobs: 512-byte rows with the AA hash by default;
-METABULI_WIDE_PROBE=0 takes 64-byte block rows (run starts block-aligned
-while the padded index stays under METABULI_QUAD_ALIGN_GB, default 6)
-resident and entry-row shards streamed or on a mesh;
-METABULI_HASH_PROBE=0 replaces the resident hash by the bucket
-bisection; METABULI_HASH_CHAIN / METABULI_HASH_GB bound the hash's
-chain and table size.  METABULI_DEBUG_RETRY prints each overflow retry
-of the host-scoring ladder to stderr.
+The path-DP flows probe one layout of the index, resident, streamed and
+on a mesh alike: 512-byte rows with the AA hash (index/packing.py).
+METABULI_DEBUG_RETRY prints each overflow retry of the host-scoring
+ladder to stderr.
 
 classify_file reads with the native C++ batch reader
 (io/native_reader.py) when its library builds, else with the Python
@@ -100,9 +95,7 @@ import torch
 
 from ..device import resolve_device
 from ..index.format import KmerIndex, load_index
-from ..index.packing import (aligned_bytes, bucket_state_from_numpy,
-                             load_or_pack_narrow,
-                             load_or_pack_wide, load_or_shard,
+from ..index.packing import (load_or_pack_wide, load_or_shard,
                              match_state_from_numpy,
                              sharded_state_from_numpy, state_from_numpy,
                              stream_state_from_numpy)
@@ -363,10 +356,6 @@ class Classifier:
         self._grid = self.mesh or Mesh([[self.device]])
         self.params = params
         self.index = index
-        # the probe-layout knobs (module docstring)
-        self._wide_probe = os.environ.get("METABULI_WIDE_PROBE", "1") == "1"
-        self._align_cap = float(os.environ.get("METABULI_QUAD_ALIGN_GB",
-                                               "6")) * (1 << 30)
         # DB-range streaming: when the packed index (16 B per metamer)
         # takes more than half the device-memory budget, keep it on the
         # host and probe it in range passes
@@ -374,16 +363,8 @@ class Classifier:
             or float(os.environ.get("METABULI_HBM_GB", "0") or 0)
         self._hbm_budget_gb = budget_gb
         self._shard_bytes = len(index.values) * 16
-        quad_bytes = self._shard_bytes
-        if budget_gb > 0 and self.mesh is None and not self._wide_probe:
-            # a resident narrow index would be block-aligned: decide on
-            # that footprint, so an index just under the budget cannot
-            # outgrow it once padded
-            padded = aligned_bytes(index._aa_runs())
-            if padded <= self._align_cap:
-                quad_bytes = max(quad_bytes, padded)
         self._streaming = (self.mesh is None and budget_gb > 0
-                           and quad_bytes > budget_gb * (1 << 30) * 0.5)
+                           and self._shard_bytes > budget_gb * (1 << 30) * 0.5)
         self.taxonomy = index.taxonomy
         meta = index.meta
         self.kmer_format = int(meta.get("kmer_format", 2))
@@ -498,8 +479,7 @@ class Classifier:
             n_ranges = max(2, int(np.ceil(self._shard_bytes / budget)))
             with stage("layout"):
                 quads, hts, log2_rows, chain, _ = load_or_shard(
-                    self.index.values, db_ef, sp_euk, n_ranges,
-                    wide=self._wide_probe)
+                    self.index.values, db_ef, sp_euk, n_ranges)
             with stage("upload"):
                 st = stream_state_from_numpy(
                     quads, hts, log2_rows, chain, depth, lift,
@@ -513,26 +493,9 @@ class Classifier:
             self._tables = {self.device: (self.euler, self.lca_depth,
                                           self.lca_lift)}
             return
-        # the resident layout, chosen as the JAX package chooses it: the
-        # hash's chain bound defaults to 1 within a 3-GiB table, and the
-        # wide rows need the hash
-        use_hash = os.environ.get("METABULI_HASH_PROBE", "1") == "1"
-        mc_env = os.environ.get("METABULI_HASH_CHAIN")
-        hash_kw = dict(
-            max_chain=int(mc_env) if mc_env is not None else 1,
-            max_bytes=0 if mc_env else int(float(os.environ.get(
-                "METABULI_HASH_GB", "3")) * (1 << 30)))
-        self._wide = use_hash and self._wide_probe
-        self._aligned = (not self._wide and use_hash and aligned_bytes(
-            self.index._aa_runs()) <= self._align_cap)
         with stage("layout"):
-            if self._wide:
-                rows, ht, log2_rows, chain, db_m = load_or_pack_wide(
-                    self.index.values, db_ef, sp_euk, **hash_kw)
-            else:
-                rows, ht, log2_rows, chain, db_m = load_or_pack_narrow(
-                    self.index.values, db_ef, sp_euk, aligned=self._aligned,
-                    use_hash=use_hash, **hash_kw)
+            rows, ht, log2_rows, chain, db_m = load_or_pack_wide(
+                self.index.values, db_ef, sp_euk)
         with stage("upload"):
             st = state_from_numpy(rows, ht, log2_rows, chain, db_m, depth,
                                   lift, self.taxonomy.euler.astype(np.int32),
@@ -544,17 +507,7 @@ class Classifier:
         # what every resident dispatch hands the probe
         self._probe_kw = dict(hash_table=self.hash_table,
                               hash_log2_rows=self.hash_log2_rows,
-                              hash_chain=self.hash_chain, db_m=self.db_m,
-                              aligned=self._aligned)
-        if not use_hash:
-            # the bisection's bucket tables stay resident beside the rows
-            from ..ops.match_torch import build_buckets
-
-            with stage("layout"):
-                buckets = build_buckets(self.index.values)
-            with stage("upload"):
-                self._probe_kw.update(bucket_state_from_numpy(*buckets,
-                                                              self.device))
+                              hash_chain=self.hash_chain, db_m=self.db_m)
 
     def _init_mesh(self, db_ef, sp_euk, depth, lift, ef):
         """The index cut over the mesh's 'db' axis at AA-part boundaries,
@@ -574,8 +527,7 @@ class Classifier:
             if self._mesh_stream else 1
         with self.timer.stage("layout"):
             quads, hts, log2_rows, chain, _ = load_or_shard(
-                self.index.values, db_ef, sp_euk, n_ranges * n_db,
-                wide=self._wide_probe)
+                self.index.values, db_ef, sp_euk, n_ranges * n_db)
         with self.timer.stage("upload"):
             st = sharded_state_from_numpy(
                 quads, hts, log2_rows, chain, depth, lift,
@@ -660,11 +612,25 @@ class Classifier:
     def _up(self, a):
         return torch.from_numpy(a).to(self.device, non_blocking=True)
 
-    def _prep_arrays(self, a, l, B):
-        """Crop one mate to its length bucket and move reads and lengths
-        to the device: (reads, lengths on the device, host lengths)."""
-        h, l = self._crop(a, l, B)
-        return self._up(h), self._up(l), l
+    def _prep_mates(self, a1, l1, a2, l2, B):
+        """Each mate cropped to its length bucket, its reads and lengths
+        moved to the device: (r1, j1, l1, r2, j2, l2), the reads and
+        lengths on the device and the clipped host lengths of each mate,
+        mate 2's three None unpaired."""
+        out = ()
+        for a, l in ((a1, l1), (a2, l2)):
+            if a is None:
+                out += (None, None, None)
+            else:
+                h, l = self._crop(a, l, B)
+                out += (self._up(h), self._up(l), l)
+        return out
+
+    def _knobs(self, cap, path_width, win_frac, path_block):
+        """A dispatch's (cap, path_width, win_frac, path_block): each
+        value given, else the classifier's sticky one."""
+        return (cap or self.cap, path_width or self._path_width,
+                win_frac or self._win_frac, path_block or self._path_block)
 
     _WIDTH_SHRINK_AFTER = 4
     _WIDTH_FLOOR = 1 << 13
@@ -752,27 +718,22 @@ class Classifier:
 
     def _dispatch_batch_dp(self, names, a1, l1, a2=None, l2=None, cap=None,
                            path_width=None, win_frac=None, path_block=None):
+        cap, path_width, win_frac, path_block = self._knobs(
+            cap, path_width, win_frac, path_block)
         if self._streaming:
             # every retry of the ladder re-runs as a single-batch sweep
             return self._dispatch_group_stream(
                 [(names, a1, l1, a2, l2)], cap=cap, path_width=path_width,
                 win_frac=win_frac, path_block=path_block)[0]
-        from ..models.flagship import fused_step_dp, part_widths
-
-        B = len(names)
-        cap = cap or self.cap
-        path_width = path_width or self._path_width
-        win_frac = win_frac or self._win_frac
-        path_block = path_block or self._path_block
         if self.mesh is not None:
             return self._dispatch_batch_dp_sharded(
                 names, a1, l1, a2, l2, cap, path_width, win_frac, path_block)
+        from ..models.flagship import fused_step_dp, part_widths
+
+        B = len(names)
         with self.timer.stage("dispatch"):
             with self.timer.stage("prep"):
-                r1, j1, l1 = self._prep_arrays(a1, l1, B)
-                r2 = j2 = l2_c = None
-                if a2 is not None:
-                    r2, j2, l2_c = self._prep_arrays(a2, l2, B)
+                r1, j1, l1, r2, j2, l2_c = self._prep_mates(a1, l1, a2, l2, B)
             packed_hdr, resident = fused_step_dp(
                 r1, j1, self.db_quad, reads2=r2, lens2=j2,
                 min_cons=int(self.params.min_cons_cnt),
@@ -910,10 +871,8 @@ class Classifier:
                                        finish_stream_step, new_accumulators,
                                        part_widths, probe_range_step)
 
-        cap = cap or self.cap
-        path_width = path_width or self._path_width
-        win_frac = win_frac or self._win_frac
-        path_block = path_block or self._path_block
+        cap, path_width, win_frac, path_block = self._knobs(
+            cap, path_width, win_frac, path_block)
         ex_kw = dict(syncmer=self.syncmer, smer_len=self.smer_len,
                      kmer_format=self.kmer_format, win_frac=win_frac)
         stage = self.timer.stage
@@ -922,10 +881,8 @@ class Classifier:
             for names, a1, l1, a2, l2 in group:
                 B = len(names)
                 with stage("prep"):
-                    r1, j1, l1 = self._prep_arrays(a1, l1, B)
-                    r2 = j2 = l2_c = None
-                    if a2 is not None:
-                        r2, j2, l2_c = self._prep_arrays(a2, l2, B)
+                    r1, j1, l1, r2, j2, l2_c = self._prep_mates(a1, l1, a2,
+                                                                l2, B)
                 with stage("extract"):
                     qk, qp, qf, qs, qv, shapes, win_over = \
                         extract_queries_step(r1, j1, r2, j2, **ex_kw)
@@ -1001,18 +958,14 @@ class Classifier:
         from ..models.flagship import fused_step_full, part_widths
 
         B = len(names)
-        cap = cap or self.cap
-        win_frac = win_frac or self._win_frac
-        path_width, path_block = self._path_width, self._path_block
+        cap, path_width, win_frac, path_block = self._knobs(
+            cap, None, win_frac, None)
         combine_k = self._combine_k
         with self.timer.stage("dispatch"):
             with self.timer.stage("prep"):
-                r1, j1, l1 = self._prep_arrays(a1, l1, B)
-                r2 = j2 = l2_c = lmax2 = None
-                if a2 is not None:
-                    r2, j2, l2_c = self._prep_arrays(a2, l2, B)
-                    lmax2 = r2.shape[1]
-            lmax = r1.shape[1] + (lmax2 + 3 if a2 is not None else 0)
+                r1, j1, l1, r2, j2, l2_c = self._prep_mates(a1, l1, a2, l2, B)
+            lmax2 = r2.shape[1] if r2 is not None else None
+            lmax = r1.shape[1] + (lmax2 + 3 if r2 is not None else 0)
             records, packed2 = fused_step_full(
                 r1, j1, self.db_quad, self.ef_node, self.euler,
                 self.lca_depth, self.lca_lift, reads2=r2, lens2=j2,
@@ -1038,47 +991,18 @@ class Classifier:
                     "pairs": _HostCopy(packed2)}
 
     def _finish_full_phase1(self, ctx):
-        """Fetch + decode the per-read record table; run the overflow
-        retry ladder (the host-scoring flow's four rungs, then the
-        combine_k run overflow).  The emission block and combine_k
-        double from the value the overflowing dispatch ran with: the
-        batches already in the pipeline were dispatched with the same
-        stale value, and doubling the sticky knob once per such batch
-        would square the combine step's work for nothing."""
+        """Fetch + decode the per-read record table, after the overflow
+        retry ladder (_climb_ladder: the host-scoring flow's four rungs,
+        then the combine_k run overflow)."""
         with self.timer.stage("hdr_sync"):
             rec = ctx["records"].numpy()         # ONE blocking fetch
             st = rec[:5, 0]
-        # recheck-all retry ladder carrying effective knobs (see
-        # _finish_dp_phase1 for the rationale)
-        eff_wf = None
-        eff_cap = ctx["cap"]
-        while True:
-            if int(st[2]) > 0:                   # window compaction
-                self._win_frac = min(self._win_frac + 24, 256)
-                eff_wf = 256
-                rung = "window"
-            elif int(st[0]) > 0 and eff_cap < self._cap_ceiling:
-                eff_cap = min(eff_cap * 2, self._cap_ceiling)
-                self.cap = max(self.cap, eff_cap)
-                rung = "cap"
-            elif int(st[3]) > 0:                 # blocked-emission lanes
-                self._path_block = max(self._path_block,
-                                       ctx["path_block"] * 2)
-                rung = "block"
-            elif int(st[1]) > ctx["path_width"]:  # path compaction width
-                self._path_width = max(self._path_width,
-                                       ctx["path_width"]) * 2
-                rung = "width"
-            elif int(st[4]) > 0:                 # combine_k run overflow
-                self._combine_k = max(self._combine_k, ctx["combine_k"] * 2)
-                rung = "combine_k"
-            else:
-                break
-            self.full_retries[rung] = self.full_retries.get(rung, 0) + 1
+        eff = (ctx["cap"], None)
+        while (eff := self._climb_ladder(st, ctx, *eff)) is not None:
             with self.timer.stage("retry"):
                 ctx = self._dispatch_batch_full(
                     ctx["names"], ctx["a1"], ctx["l1"], ctx["a2"], ctx["l2"],
-                    cap=eff_cap, win_frac=eff_wf)
+                    cap=eff[0], win_frac=eff[1])
                 rec = ctx["records"].numpy()
                 st = rec[:5, 0]
 
@@ -1129,48 +1053,66 @@ class Classifier:
                           self._grid.shape["dp"], self._grid.multi_process)
         return hdr, next(iter(g.values()))[[0, 4, 2, 3]]
 
+    def _double_cap(self, cap):
+        """The candidate cap after an overflow at `cap`: doubled, up to
+        the longest run, and kept for later batches."""
+        cap = min(cap * 2, self._cap_ceiling)
+        self.cap = max(self.cap, cap)
+        return cap
+
+    def _climb_ladder(self, st, ctx, cap, win_frac):
+        """One step of the overflow retry ladder of the path-DP finishes.
+        st: a batch's stats header (candidate-cap overflow, path count,
+        window-compaction overflow, blocked-emission overflow and, on the
+        device-assign flow, a fifth row: combine_k run overflow); ctx:
+        the batch as dispatched; (cap, win_frac): the effective values of
+        the retries taken for it so far (win_frac None: the sticky one).
+        Takes the first rung that overflowed, applies its sticky update
+        and returns the (cap, win_frac) to re-dispatch with, or None when
+        no rung overflowed.  Every re-dispatch rechecks every rung.  The
+        emission block and combine_k double from the value the batch was
+        dispatched with: the batches queued behind it ran with the same
+        one, and doubling the sticky knob once per such batch would
+        square the work for nothing."""
+        if int(st[2]) > 0:
+            # window-compaction overflow: widen permanently, re-run
+            # uncompacted for this batch
+            self._win_frac = min(self._win_frac + 24, 256)
+            win_frac, rung = 256, "window"
+        elif int(st[0]) > 0 and cap < self._cap_ceiling:
+            cap, rung = self._double_cap(cap), "cap"
+        elif int(st[3]) > 0:                     # blocked-emission lanes
+            self._path_block = max(self._path_block, ctx["path_block"] * 2)
+            rung = "block"
+        elif int(st[1]) > ctx["path_width"]:     # path compaction width
+            self._path_width = max(self._path_width, ctx["path_width"]) * 2
+            rung = "width"
+        elif len(st) > 4 and int(st[4]) > 0:     # combine_k run overflow
+            self._combine_k = max(self._combine_k, ctx["combine_k"] * 2)
+            rung = "combine_k"
+        else:
+            return None
+        if len(st) > 4:
+            self.full_retries[rung] = self.full_retries.get(rung, 0) + 1
+        elif os.environ.get("METABULI_DEBUG_RETRY"):
+            print(f"# retry st={st.tolist()} -> cap={cap} "
+                  f"wf={win_frac} pw={self._path_width} "
+                  f"pb={self._path_block} wfrac={self._win_frac}",
+                  file=sys.stderr)
+        return cap, win_frac
+
     def _finish_dp_phase1(self, ctx):
         """Fetch emitted paths, score species, enqueue the redundancy step
         — but do NOT wait for it (phase 2 does), so its device work sits
         behind the next batch's fused step."""
         with self.timer.stage("hdr_sync"):
             hdr, st = self._header(ctx)
-        # Overflow retry ladder: every re-dispatch carries the EFFECTIVE
-        # knob values of retries already taken this batch, and every
-        # condition is rechecked after each retry.
-        eff_wf = None                            # None -> self._win_frac
-        eff_cap = ctx["cap"]
-        while True:
-            # window-compaction overflow: widen permanently, re-run
-            # uncompacted for this batch
-            if int(st[2]) > 0:
-                self._win_frac = min(self._win_frac + 24, 256)
-                eff_wf = 256
-            # candidate-cap overflow: doubled sticky cap
-            elif int(st[0]) > 0 and eff_cap < self._cap_ceiling:
-                eff_cap = min(eff_cap * 2, self._cap_ceiling)
-                self.cap = max(self.cap, eff_cap)
-            # blocked-emission lane overflow: doubled sticky block, from
-            # the value this batch ran with (the batches queued behind
-            # it ran with the same one: one doubling serves them all)
-            elif int(st[3]) > 0:
-                self._path_block = max(self._path_block,
-                                       ctx["path_block"] * 2)
-            # path-compaction width overflow: doubled static width
-            elif int(st[1]) > ctx["path_width"]:
-                self._path_width = max(self._path_width,
-                                       ctx["path_width"]) * 2
-            else:
-                break
-            if os.environ.get("METABULI_DEBUG_RETRY"):
-                print(f"# retry st={st.tolist()} -> cap={eff_cap} "
-                      f"wf={eff_wf} pw={self._path_width} "
-                      f"pb={self._path_block} wfrac={self._win_frac}",
-                      file=sys.stderr)
+        eff = (ctx["cap"], None)
+        while (eff := self._climb_ladder(st, ctx, *eff)) is not None:
             with self.timer.stage("retry"):
                 ctx = self._dispatch_batch_dp(
                     ctx["names"], ctx["a1"], ctx["l1"], ctx["a2"], ctx["l2"],
-                    cap=eff_cap, win_frac=eff_wf)
+                    cap=eff[0], win_frac=eff[1])
                 hdr, st = self._header(ctx)
 
         names, l1, l2, Bl = ctx["names"], ctx["l1"], ctx["l2"], ctx["Bl"]
@@ -1335,12 +1277,7 @@ class Classifier:
         cap = cap or self.cap
         with self.timer.stage("dispatch"):
             with self.timer.stage("prep"):
-                h1, l1 = self._crop(a1, l1, B)
-                r1, j1 = self._up(h1), self._up(l1)
-                r2 = j2 = l2_c = None
-                if a2 is not None:
-                    h2, l2_c = self._crop(a2, l2, B)
-                    r2, j2 = self._up(h2), self._up(l2_c)
+                r1, j1, l1, r2, j2, l2_c = self._prep_mates(a1, l1, a2, l2, B)
             packed, count, overflow = self._fused_step_host(
                 r1, j1, r2, j2, cap, stage=self.timer.stage)
             # the (count, overflow) pair and an estimated match prefix
@@ -1357,8 +1294,7 @@ class Classifier:
         # deferred overflow check: re-dispatch with a bigger cap if needed
         while int(ctx["stats"].numpy()[1]) > 0 \
                 and ctx["cap"] < self._cap_ceiling:
-            cap = min(ctx["cap"] * 2, self._cap_ceiling)
-            self.cap = max(self.cap, cap)
+            cap = self._double_cap(ctx["cap"])
             with self.timer.stage("retry"):
                 ctx = self._dispatch_batch_host(
                     ctx["names"], ctx["a1"], ctx["l1"], ctx["a2"], ctx["l2"],
@@ -1483,8 +1419,7 @@ class Classifier:
                         r1, j1, None, None, cap)
                     if int(overflow) == 0 or cap >= self._cap_ceiling:
                         break
-                    cap = min(cap * 2, self._cap_ceiling)
-                    self.cap = max(self.cap, cap)
+                    cap = self._double_cap(cap)
                 m = compact_torch.decode_matches(
                     compact_torch.fetch_compacted((packed, count)),
                     MATCH_DTYPE)
@@ -1539,8 +1474,7 @@ class Classifier:
                 del quad_r, hash_r
             if int(acc["overflow"]) == 0 or cap >= self._cap_ceiling:
                 break
-            cap = min(cap * 2, self._cap_ceiling)
-            self.cap = max(self.cap, cap)
+            cap = self._double_cap(cap)
         # only the selected candidates cross to the host
         c, n = torch.nonzero(acc["sel"], as_tuple=True)
         at = lambda a: a[c, n].cpu().numpy()

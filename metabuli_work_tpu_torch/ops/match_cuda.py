@@ -1,12 +1,11 @@
 """The index probe on the card: the CUDA kernel csrc/probe.cu (one launch
 a probe of a query batch) and its wrapper.
 
-match_torch.match_kmers_quad launches it for CUDA tensors with the AA
-hash, and models/flagship.probe_range_step launches it in fold mode
-(the range's candidates added into the sweep's accumulators in place);
-CPU tensors run the plain torch version (match_torch.match_kmers_quad_ref).
-A CUDA tensor never falls back to the plain version: only the bucket
-bisection (no hash table) keeps the plain body on the card.  The library
+match_torch.match_kmers_quad launches it for CUDA tensors, and
+models/flagship.probe_range_step launches it in fold mode (the range's
+candidates added into the sweep's accumulators in place); CPU tensors
+run the plain torch version (match_torch.match_kmers_quad_ref).  A CUDA
+tensor never falls back to the plain version.  The library
 is compiled by nvcc (sm_90a) at first use, in parallel with the
 package's other CUDA libraries (utils/build.cuda_libraries), and bound
 with ctypes.

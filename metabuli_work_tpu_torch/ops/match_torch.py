@@ -7,11 +7,10 @@ Two probes share the hamming filter:
   value_hi32, payload_lo, payload_hi) per row) plus a hash of the unique
   40-bit AA parts that maps each to its run start and run length.  The
   probe is a point lookup of every query's AA run and a gather of its
-  first ``cap`` run entries.  The narrow layouts (64-byte block rows,
-  run starts aligned or not, entry-row shards) and the bucket bisection
-  in place of the hash are the same probe over other rows.  On the card
-  the probe with the hash is one launch of csrc/probe.cu
-  (ops/match_cuda.py); match_kmers_quad_ref is its plain version.
+  first ``cap`` run entries.  A range of a streamed index or a shard of
+  a mesh is the same rows over its own hash.  On the card the probe is
+  one launch of csrc/probe.cu (ops/match_cuda.py);
+  match_kmers_quad_ref is its plain version.
 * match_kmers / match_kmers_cm (the host-match flow): the raw sorted
   arrays (values, taxids, species).  The run start comes from one
   bucket-pair gather plus a short bisection on the low 32 AA bits
@@ -89,59 +88,24 @@ def _gather_window_wide(db_w, lo, win: int):
     return ent[idx]
 
 
-def _gather_blocks(db_blk, lo, win: int, aligned: bool):
-    """[win, N, 4] candidate entries lo .. lo+win-1 from 64-byte block
-    rows ([R, 16]: 4 entries a row).
-
-    aligned (run starts block-aligned by packing.align_runs4): exactly
-    ceil(win/4) block gathers from lo >> 2 and no shuffle.  Unaligned:
-    (win+6)//4 consecutive blocks, then window entry j is entry
-    (lo & 3) + j of the gathered blocks.  Block indices past the end
-    clamp to the last block, which (like every pad) holds all-ones
-    sentinels that never AA-match a query."""
-    R = db_blk.shape[0]
-    n = lo.shape[0]
-    b0 = lo >> 2
-    nblk = (win + 3) // 4 if aligned else (win + 6) // 4
-    ks = torch.arange(nblk, device=lo.device)
-    ent = db_blk[torch.clamp(b0[:, None] + ks[None, :], max=R - 1)]
-    ent = ent.reshape(n, 4 * nblk, 4)
-    if aligned:
-        return ent[:, :win, :].permute(1, 0, 2)
-    j = (lo & 3)[None, :] + torch.arange(win, device=lo.device)[:, None]
-    return torch.gather(ent.permute(1, 0, 2), 0,
-                        j[:, :, None].expand(win, n, 4))
-
-
 def entry_limit(db_quad, db_m=None) -> int:
-    """M, the entries of a packed index that a window may read (a run
-    never extends past them): db_m where given, else every entry of the
-    [R, 128] wide rows or [S, 4] entry rows; a [R, 16] block-row index
-    needs db_m."""
-    if db_m is not None:
-        return db_m
-    width = db_quad.shape[1]
-    if width == 16:
-        raise ValueError("a block-row index needs db_m")
-    return db_quad.shape[0] * 32 if width == 128 else db_quad.shape[0]
+    """M, the entries of the [R, 128] wide rows that a window may read (a
+    run never extends past them): db_m where given, else every entry of
+    the rows, padding included."""
+    return db_m if db_m is not None else db_quad.shape[0] * 32
 
 
 def match_kmers_quad(q_kmers, q_frames, q_valid, db_quad, cap: int,
-                     kmer_format: int, hash_table=None,
-                     hash_log2_rows: int = 0, hash_chain: int = 0,
-                     db_m: int = None, aligned: bool = False,
-                     bucket_lo=None, db_aa_lo=None, bucket_shift: int = 0,
-                     bucket_steps: int = 0):
+                     kmer_format: int, hash_table, hash_log2_rows: int,
+                     hash_chain: int, db_m: int = None):
     """Probe the packed index — cap-MAJOR layout; arguments and result as
     match_kmers_quad_ref.
 
-    CUDA tensors with the AA hash take one launch of the probe kernel
-    (ops/match_cuda.py, csrc/probe.cu), which writes 0 in the five value
-    fields wherever sel is false (no consumer reads them there).  CPU
-    tensors, and run starts by bucket bisection (hash_table None, as
-    METABULI_HASH_PROBE=0 asks), run the plain body: the choice follows
-    the inputs, never a failed launch."""
-    if q_kmers.is_cuda and hash_table is not None:
+    CUDA tensors take one launch of the probe kernel (ops/match_cuda.py,
+    csrc/probe.cu), which writes 0 in the five value fields wherever sel
+    is false (no consumer reads them there).  CPU tensors run the plain
+    body: the choice follows the inputs, never a failed launch."""
+    if q_kmers.is_cuda:
         return match_cuda.probe(
             q_kmers, q_frames, q_valid, db_quad, hash_table, cap=cap,
             kmer_format=kmer_format, log2_rows=hash_log2_rows,
@@ -149,31 +113,20 @@ def match_kmers_quad(q_kmers, q_frames, q_valid, db_quad, cap: int,
     return match_kmers_quad_ref(
         q_kmers, q_frames, q_valid, db_quad, cap, kmer_format,
         hash_table=hash_table, hash_log2_rows=hash_log2_rows,
-        hash_chain=hash_chain, db_m=db_m, aligned=aligned,
-        bucket_lo=bucket_lo, db_aa_lo=db_aa_lo, bucket_shift=bucket_shift,
-        bucket_steps=bucket_steps)
+        hash_chain=hash_chain, db_m=db_m)
 
 
 def match_kmers_quad_ref(q_kmers, q_frames, q_valid, db_quad, cap: int,
-                         kmer_format: int, hash_table=None,
-                         hash_log2_rows: int = 0, hash_chain: int = 0,
-                         db_m: int = None, aligned: bool = False,
-                         bucket_lo=None, db_aa_lo=None,
-                         bucket_shift: int = 0, bucket_steps: int = 0):
+                         kmer_format: int, hash_table, hash_log2_rows: int,
+                         hash_chain: int, db_m: int = None):
     """match_kmers_quad in plain torch (the probe kernel's plain version;
     any device).
 
-    db_quad is one of three int32 layouts (packing.py):
-    * [R, 128] 512-byte rows (the default wide layout; needs the hash);
-    * [R, 16] 64-byte block rows (the narrow layout; db_m, the entry
-      count with any alignment padding, is required; `aligned` when run
-      starts sit on block boundaries);
-    * [S, 4] entry rows (a narrow shard; db_m defaults to S).
-    Run starts come from the AA hash (hash_table: the run length comes
-    with the start, so the window is exactly cap entries and overflow is
-    known from the lookup), else the bucket bisection (bucket_lo,
-    db_aa_lo, bucket_shift, bucket_steps of build_buckets: the window
-    keeps a cap+1'th entry, whose AA match tells overflow).
+    db_quad is the int32 [R, 128] 512-byte rows of packing.py (a whole
+    index, with db_m its entry count, or a range or shard, whose padding
+    db_m None covers).  Run starts and run lengths come from the AA hash
+    (hash_table, hash_log2_rows, hash_chain), so the window is exactly
+    cap entries and overflow is known from the lookup.
 
     q_kmers int64 [N] metamer bits, q_frames int32 [N], q_valid bool [N].
     Returns a dict of [cap, N] tensors: sel (bool), hamming (int32 sum),
@@ -182,30 +135,12 @@ def match_kmers_quad_ref(q_kmers, q_frames, q_valid, db_quad, cap: int,
     bit 30), dna_enc (target 24-bit DNA part), plus overflow (int32
     scalar: valid queries whose run exceeds cap).
     """
-    width = db_quad.shape[1]
     M = entry_limit(db_quad, db_m)
     q_aa = (q_kmers >> DNA_BITS) & _M40
-    rlen = None
-    if hash_table is not None:
-        lo, rlen = _hash_search(q_aa, hash_table, hash_log2_rows,
-                                hash_chain, M)
-    else:
-        lo = _bucket_search(q_aa, bucket_lo, db_aa_lo, bucket_shift,
-                            bucket_steps, M)
-
-    # with run lengths from the hash the window is exactly cap entries;
-    # without them it keeps a cap+1'th entry for the overflow check
-    win = cap if rlen is not None else cap + 1
-    offs = torch.arange(win, device=lo.device)[:, None]
+    lo, rlen = _hash_search(q_aa, hash_table, hash_log2_rows, hash_chain, M)
+    offs = torch.arange(cap, device=lo.device)[:, None]
     pos = lo[None, :] + offs
-    if width == 128:
-        if rlen is None:
-            raise ValueError("the wide layout needs the AA hash")
-        t_quad = _gather_window_wide(db_quad, lo, win)
-    elif width == 16:
-        t_quad = _gather_blocks(db_quad, lo, win, aligned)
-    else:
-        t_quad = db_quad[torch.clamp(pos, 0, M - 1)]
+    t_quad = _gather_window_wide(db_quad, lo, cap)
     v_lo = t_quad[..., 0]
     v_hi = t_quad[..., 1]
     # AA equality on the split halves: high 32 AA bits live in v_hi,
@@ -214,15 +149,8 @@ def match_kmers_quad_ref(q_kmers, q_frames, q_valid, db_quad, cap: int,
     q_low8 = q_aa & 0xFF
     cmask = (v_hi == q_hi[None, :]) \
         & (((v_lo >> 24) & 0xFF).to(torch.int64) == q_low8[None, :]) \
-        & (pos < M) & q_valid[None, :]
-    if rlen is not None:
-        cmask = cmask & (offs < rlen[None, :])
-        overflow = (q_valid & (rlen > cap)).sum().to(torch.int32)
-    else:
-        overflow = cmask[cap].sum().to(torch.int32)
-        cmask = cmask[:cap]
-        t_quad = t_quad[:cap]
-        v_lo = v_lo[:cap]
+        & (pos < M) & q_valid[None, :] & (offs < rlen[None, :])
+    overflow = (q_valid & (rlen > cap)).sum().to(torch.int32)
 
     t_dna = v_lo & ((1 << DNA_BITS) - 1)
     q_dna = (q_kmers & ((1 << DNA_BITS) - 1)).to(torch.int32)[None, :]

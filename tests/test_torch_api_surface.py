@@ -28,13 +28,14 @@ PORT_PKG = os.path.join(REPO, "metabuli_work_tpu_torch")
 # names that moved to another module of the port
 MOVED = {
     **{("ops/match_jax.py", n): "index/packing.py"
-       for n in ("build_aa_hash", "align_runs4", "pack_db_quad",
-                 "pack_db_rows32", "pack_db_blocks")},
+       for n in ("build_aa_hash", "pack_db_quad", "pack_db_rows32")},
     ("parallel/sharding.py", "shard_quad_index"): "index/packing.py",
 }
 
 _FLAGSHIP = "models/flagship.py"
 _SHARDING = "parallel/sharding.py"
+_NARROW = {"aligned", "bucket_lo", "db_aa_lo", "bucket_shift",
+           "bucket_steps"}
 _ACC = {"acc_sel", "acc_ham", "acc_rh", "acc_tax", "acc_sp", "acc_dna",
         "acc_over"}
 
@@ -90,6 +91,21 @@ NOT_CARRIED = [
       (_SHARDING, "make_sharded_fused_dp_prod"): {"paired", "has_ra"},
       (_SHARDING, "make_sharded_stream_steps"):
           {"paired", "has_ra", "compact5", "shapes"}}),
+    # one probe layout on the card: 512-byte rows with the AA hash,
+    # resident, streamed and on a mesh.  The JAX package's 64-byte block
+    # rows (run starts aligned by align_runs4, which the hash then points
+    # into through starts_override, or not), entry-row shards and bucket
+    # bisection gave rates that the wide layout's own spread covers on
+    # the H100 (-8.4% to +7.5%; METABULI_HASH_CHAIN=3 15.0% slower), and
+    # every classification is the same on any of them
+    ("one probe layout on the card",
+     {("ops/match_jax.py", "pack_db_blocks"): None,
+      ("ops/match_jax.py", "align_runs4"): None,
+      ("ops/match_jax.py", "build_aa_hash"): {"starts_override"},
+      (_SHARDING, "shard_quad_index"): {"wide"},
+      ("ops/match_jax.py", "match_kmers_quad"): _NARROW,
+      (_FLAGSHIP, "fused_step_dp"): _NARROW,
+      (_FLAGSHIP, "fused_step_full"): _NARROW}),
     # JAX accepts it and never reads it
     ("unread", {("parallel/scaling.py", "measure_scaling"): {"n_kmers"}}),
     # no caller in either package sets or reads these.  long_read_chunk

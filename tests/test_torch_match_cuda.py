@@ -2,16 +2,14 @@
 torch version on the card: sel and the overflow count everywhere, the
 five value fields wherever sel holds and 0 elsewhere, over every layout
 of tests/torch_probe_cases.py (wide rows, a hash whose rows chain and
-clamp at the last row, aligned and unaligned block rows, entry-row and
-wide range cuts), caps 4, 12, 20 and 40 (runs longer than the small
-ones), both k-mer layouts and all six frames, with hash misses and
-invalid queries; the fold mode of the streamed range passes over
-disjoint ranges equal to the plain fold; each call one launch.  Then
-every flow that probes with the hash on the card, on a small database,
-launches the kernel at least once a `probe` span (the plain version
-refuses CUDA tensors for the test) and classifies every read as the CPU
-run does; the bucket bisection, which has no hash, keeps the plain body.
-No JAX import: on a machine with a card and without JAX run it as
+clamp at the last row, a range cut), caps 4, 12, 20 and 40 (runs longer
+than the small ones), both k-mer layouts and all six frames, with hash
+misses and invalid queries; the fold mode of the streamed range passes
+over disjoint ranges equal to the plain fold; each call one launch.
+Then every flow that probes the packed index on the card, on a small
+database, launches the kernel at least once a `probe` span (the plain
+version refuses CUDA tensors for the test) and classifies every read as
+the CPU run does.  No JAX import: on a machine with a card and without JAX run it as
 
     python -m pytest tests/test_torch_match_cuda.py -m cuda --noconftest
 """
@@ -96,13 +94,12 @@ def test_probe_kernel_matches_plain(cdb, kind, cap, kmer_format):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cap", [4, 20])
-@pytest.mark.parametrize("wide", [True, False], ids=["wide", "entries"])
-def test_probe_kernel_fold_matches_plain_fold(cdb, wide, cap):
+def test_probe_kernel_fold_matches_plain_fold(cdb, cap):
     """The streamed range passes: the kernel folds each of 3 disjoint
     ranges into the accumulators, in one launch a range, to what the
     plain probe and fold give on the CPU, field for field."""
     index, (qk, qf, qv) = cdb
-    quads, hts, log2, chain = cases.ranges(index, 3, wide)
+    quads, hts, log2, chain = cases.ranges(index, 3)
     kw = dict(cap=cap, kmer_format=2, hash_log2_rows=log2, hash_chain=chain)
     ref = flagship.new_accumulators(cap, qk.shape[0], "cpu")
     got = flagship.new_accumulators(cap, qk.shape[0], "cuda")
@@ -127,7 +124,7 @@ def test_probe_kernel_empty_and_refused(cdb):
     entries do not start at a 16-byte boundary is refused before any
     launch (no fall-back to the plain version)."""
     index, _ = cdb
-    rows, kw = cases.layout(index, "entries")
+    rows, kw = cases.layout(index, "wide-range")
     dkw = {k: v.cuda() if torch.is_tensor(v) else v for k, v in kw.items()}
     rows = rows.cuda()
     e = torch.zeros(0, dtype=torch.int64, device="cuda")
@@ -193,12 +190,8 @@ def _budget_gb(db, flow):
 
 
 FLOWS = ["resident", "paired", "long", "streamed", "device-assign", "mesh",
-         "mesh-streamed", "narrow-aligned", "narrow-unaligned", "chain3"]
-KNOBS = {"narrow-aligned": {"METABULI_WIDE_PROBE": "0"},
-         "narrow-unaligned": {"METABULI_WIDE_PROBE": "0",
-                              "METABULI_QUAD_ALIGN_GB": "0"},
-         "chain3": {"METABULI_HASH_CHAIN": "3"},
-         "device-assign": {"METABULI_DEVICE_ASSIGN": "1"}}
+         "mesh-streamed"]
+KNOBS = {"device-assign": {"METABULI_DEVICE_ASSIGN": "1"}}
 
 
 def _classifier(data, flow, device, monkeypatch):
@@ -260,18 +253,3 @@ def test_chunk_pass_goes_through_the_kernel(data, monkeypatch,
                           device="cuda")
     assert _res(res) == _res(resident.classify_batch(["long"],
                                                      [data["chunked"]]))
-
-
-@pytest.mark.cuda
-def test_bisection_keeps_the_plain_body(data, monkeypatch):
-    """Run starts by bucket bisection (no hash table): the plain body on
-    the card, no kernel launch, every read as on the CPU."""
-    monkeypatch.setenv("METABULI_HASH_PROBE", "0")
-    kw = dict(PARAMS, seq_mode=1)
-    clf = Classifier(data["db"], ClassifyParams(**kw), device="cuda")
-    assert clf._probe_kw["hash_table"] is None
-    n = match_cuda.launches
-    got = _res(clf.classify_file(data["path"]))
-    assert match_cuda.launches == n
-    cpu = Classifier(data["db"], ClassifyParams(**kw), device="cpu")
-    assert got == _res(cpu.classify_file(data["path"]))

@@ -192,11 +192,6 @@ def test_cli_paired_outputs_byte_identical(dbs, capsys):
 
 def test_unported_configurations_raise(dbs, monkeypatch):
     _, jdb, _, _ = dbs
-    from metabuli_work_tpu_torch.index.packing import shard_quad_index
-
-    # the narrow shard layout (METABULI_WIDE_PROBE=0) is cut now too
-    quads = shard_quad_index(np.zeros((4, 4), np.uint32), 2, wide=False)[0]
-    assert quads.shape[0] == 2 and quads.shape[2] == 4
     # the flows this test used to refuse now run, --em too
     for kw in (dict(seq_mode=2), dict(seq_mode=3), dict(min_cons_cnt=1),
                dict(hbm_budget_gb=1.0), dict(em=True)):
@@ -254,3 +249,19 @@ def test_block_overflow_doubles_once_for_queued_batches(dbs, tmp_path):
     ref = _tuples(Classifier(jdb, ClassifyParams(**PARAMS),
                              device="cpu").classify_file(twice))
     assert got == ref
+
+
+@pytest.mark.parametrize("dbs", [True], indirect=True, ids=["syncmer"])
+def test_debug_retry_line_matches_jax(dbs, monkeypatch, capfd):
+    _, jdb, _, reads = dbs
+    monkeypatch.setenv("METABULI_DEBUG_RETRY", "1")
+    p = dict(PARAMS, batch_size=32)
+    out = []
+    for clf in (JClassifier(jdb, JParams(**p)),
+                Classifier(jdb, ClassifyParams(**p), device="cpu")):
+        clf._path_block = 2       # blocked-emission overflow: a retry
+        capfd.readouterr()
+        clf.classify_file(reads)
+        out.append([ln for ln in capfd.readouterr().err.splitlines()
+                    if ln.startswith("# retry")])
+    assert out[0] and out[1] == out[0]

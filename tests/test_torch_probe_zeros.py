@@ -40,13 +40,16 @@ def cdb(tmp_path_factory):
     return index, cases.queries(genomes, 3)
 
 
+@pytest.mark.parametrize("kmer_format", [1, 2])
 @pytest.mark.parametrize("kind", cases.LAYOUTS)
-def test_cpu_tensors_run_the_plain_body(cdb, kind):
+def test_cpu_tensors_run_the_plain_body(cdb, kind, kmer_format):
     index, (qk, qf, qv) = cdb
     rows, kw = cases.layout(index, kind)
     n = match_cuda.launches
-    got = match_torch.match_kmers_quad(qk, qf, qv, rows, 12, 2, **kw)
-    ref = match_torch.match_kmers_quad_ref(qk, qf, qv, rows, 12, 2, **kw)
+    got = match_torch.match_kmers_quad(qk, qf, qv, rows, 12, kmer_format,
+                                       **kw)
+    ref = match_torch.match_kmers_quad_ref(qk, qf, qv, rows, 12, kmer_format,
+                                           **kw)
     assert match_cuda.launches == n
     assert list(got) == list(ref)
     for k in ref:
@@ -54,26 +57,29 @@ def test_cpu_tensors_run_the_plain_body(cdb, kind):
     assert bool(ref["sel"].any())
 
 
-@pytest.mark.parametrize("wide", [True, False], ids=["wide", "entries"])
-def test_cpu_range_fold_is_the_plain_fold(cdb, wide):
+@pytest.mark.parametrize("cap", [4, 12])
+def test_cpu_range_fold_is_the_plain_fold(cdb, cap):
     """probe_range_step on CPU tensors: the plain probe of each range,
     added where sel holds, equal to one resident probe of the whole
-    index where sel holds (the ranges are disjoint), with no launch."""
+    index where sel holds (the ranges are disjoint), with no launch;
+    the overflow count too, at a cap that runs outrun."""
     index, (qk, qf, qv) = cdb
-    quads, hts, log2, chain = cases.ranges(index, 3, wide)
-    acc = flagship.new_accumulators(12, qk.shape[0], "cpu")
+    quads, hts, log2, chain = cases.ranges(index, 3)
+    acc = flagship.new_accumulators(cap, qk.shape[0], "cpu")
     n = match_cuda.launches
     for quad, ht in zip(quads, hts):
-        flagship.probe_range_step(qk, qf, qv, quad, ht, acc, cap=12,
+        flagship.probe_range_step(qk, qf, qv, quad, ht, acc, cap=cap,
                                   kmer_format=2, hash_log2_rows=log2,
                                   hash_chain=chain)
     assert match_cuda.launches == n
     rows, kw = cases.layout(index, "wide")
-    ref = match_torch.match_kmers_quad_ref(qk, qf, qv, rows, 12, 2, **kw)
+    ref = match_torch.match_kmers_quad_ref(qk, qf, qv, rows, cap, 2, **kw)
     assert torch.equal(acc["sel"], ref["sel"])
     assert int(acc["overflow"]) == int(ref["overflow"])
     for k in FIELDS:
         assert torch.equal(acc[k], torch.where(ref["sel"], ref[k], 0)), k
+    if cap == 4:
+        assert int(ref["overflow"]) > 0
 
 
 def test_kernel_wrapper_refuses_cpu_tensors(cdb):
@@ -152,11 +158,10 @@ def test_consumers_ignore_unselected_fields(dbs, shape, kmer_format,
         batch_size=len(s1)), device="cpu")
     assert clf.kmer_format == kmer_format
     B = len(s1)
-    r1, j1, _ = clf._prep_arrays(*clf._pad_batch(s1), B)
-    r2 = j2 = lmax2 = None
-    if s2 is not None:
-        r2, j2, _ = clf._prep_arrays(*clf._pad_batch(s2), B)
-        lmax2 = r2.shape[1]
+    a1, l1 = clf._pad_batch(s1)
+    a2, l2 = clf._pad_batch(s2) if s2 is not None else (None, None)
+    r1, j1, _, r2, j2, _ = clf._prep_mates(a1, l1, a2, l2, B)
+    lmax2 = r2.shape[1] if r2 is not None else None
     step_kw = dict(
         min_cons=int(clf.params.min_cons_cnt),
         min_cons_euk=int(clf.params.min_cons_cnt_euk), cap=clf.cap,

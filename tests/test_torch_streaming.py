@@ -82,13 +82,6 @@ def test_shard_quad_index_matches_jax(dbs, n_shards):
     aa = dbs["index"].values >> np.uint64(24)
     for b in np.cumsum(got[4])[:-1]:
         assert aa[b] != aa[b - 1]
-    # the narrow layout (METABULI_WIDE_PROBE=0): entry-row shards
-    ref = jshard(quad, n_shards, wide=False)
-    got = packing.shard_quad_index(quad, n_shards, wide=False)
-    for a, b in zip(ref[:2], got[:2]):
-        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
-    assert (ref[2], ref[3]) == (got[2], got[3])
-    assert got[0].shape[2] == 4
 
 
 def test_padded_entries_never_match(dbs):

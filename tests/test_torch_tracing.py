@@ -148,13 +148,13 @@ def test_gc_span_and_hook_lifetime(data, monkeypatch):
     clf = Classifier(data["db"], ClassifyParams(seq_mode=1, **PARAMS),
                      device="cpu")
     clf.timer = Tree()
-    prep = clf._prep_arrays
+    prep = clf._prep_mates
 
     def collecting(*a):
         gc.collect()
         return prep(*a)
 
-    monkeypatch.setattr(clf, "_prep_arrays", collecting)
+    monkeypatch.setattr(clf, "_prep_mates", collecting)
     clf.classify_file(data["path"])
     t = clf.timer
     gc_parents = {p for _, n, p, _, _ in t.log if n == "gc"}
@@ -204,13 +204,13 @@ def traced(data):
     # collections only where asked for (one a dispatch, in `prep`): one
     # the interpreter starts in a range's own bookkeeping would lie
     # inside the range and outside the span
-    prep = clf._prep_arrays
+    prep = clf._prep_mates
 
     def collecting(*a):
         gc.collect(0)
         return prep(*a)
 
-    clf._prep_arrays = collecting
+    clf._prep_mates = collecting
     gc.disable()
     try:
         with profile(activities=[ProfilerActivity.CPU]) as prof:

@@ -3,8 +3,7 @@ the torch package alone (the card test, tests/test_torch_match_cuda.py,
 imports no JAX): a database of 12 species in two genera, so that amino-
 acid runs outrun the small caps; the wide 512-byte rows with the AA
 hash, the same with a table whose rows chain (max_chain 3 in a small
-byte budget), the 64-byte block rows with run starts aligned or not,
-and the entry-row and wide range cuts of shard_quad_index; queries from
+byte budget), and a range cut of shard_quad_index; queries from
 simulated reads, with reads of random sequence (hash misses), the
 windows extraction leaves invalid, and the index's own metamers whose
 home row is the table's last (their chain of rows clamps there)."""
@@ -32,8 +31,7 @@ def make_db(root):
     return load_index(db), genomes
 
 
-LAYOUTS = ["wide", "wide-chain", "aligned", "unaligned", "entries",
-           "wide-range"]
+LAYOUTS = ["wide", "wide-chain", "wide-range"]
 
 
 def payloads(index):
@@ -57,12 +55,13 @@ def _i32(a):
 
 def layout(index, kind):
     """(rows, probe keywords) of one layout as CPU int32 tensors: the
-    keywords hold hash_table, hash_log2_rows, hash_chain, db_m and, for
-    the block rows, aligned."""
+    keywords hold hash_table, hash_log2_rows, hash_chain and db_m."""
     v, ef, sp = payloads(index)
     quad = packing.pack_db_quad(v, ef, sp)
-    db_m, extra = None, {}
-    if kind in ("wide", "wide-chain"):
+    if kind == "wide-range":
+        quads, hts, log2, chain, _ = packing.shard_quad_index(quad, 2)
+        rows, ht, db_m = quads[1], hts[1], None
+    else:
         rows = packing.pack_db_rows32(quad)
         # wide: the classifier's 42-slot rows; wide-chain: 5-slot rows in
         # a 4-KB budget, so that keys spill into the rows after their own
@@ -71,31 +70,15 @@ def layout(index, kind):
                 else dict(max_chain=3, max_bytes=1 << 12))
         ht, log2, chain = packing.build_aa_hash(v, **geom)
         db_m = len(v)
-    elif kind in ("aligned", "unaligned"):
-        aligned = kind == "aligned"
-        starts = None
-        if aligned:
-            va, efa, spa, starts = packing.align_runs4(v, ef, sp)
-            quad = packing.pack_db_quad(va, efa, spa)
-        rows = packing.pack_db_blocks(quad)
-        ht, log2, chain = packing.build_aa_hash(v, max_chain=1,
-                                                max_bytes=3 << 30,
-                                                starts_override=starts)
-        db_m = len(quad)
-        extra = dict(aligned=aligned)
-    else:
-        quads, hts, log2, chain, _ = packing.shard_quad_index(
-            quad, 2, wide=kind == "wide-range")
-        rows, ht = quads[1], hts[1]
     return _i32(rows), dict(hash_table=_i32(ht), hash_log2_rows=log2,
-                            hash_chain=chain, db_m=db_m, **extra)
+                            hash_chain=chain, db_m=db_m)
 
 
-def ranges(index, n_ranges, wide):
+def ranges(index, n_ranges):
     """(quads, hash tables, log2_rows, chain) of shard_quad_index's range
     cut, as lists of CPU int32 tensors."""
     quads, hts, log2, chain, _ = packing.shard_quad_index(
-        packing.pack_db_quad(*payloads(index)), n_ranges, wide=wide)
+        packing.pack_db_quad(*payloads(index)), n_ranges)
     return [_i32(q) for q in quads], [_i32(h) for h in hts], log2, chain
 
 
