@@ -34,14 +34,21 @@
    path prints the reader it read with (the native C++ reader unless its
    library did not build) and "<path>: N probe kernel launches, M probe
    spans" (N >= M > 0 on every path-DP flow; 0 on the host-match flow,
-   whose plain probe runs);
+   whose plain probe runs) and "<path>: N redundancy kernel launches, M
+   redundancy or assign spans" (N > 0 on every path-DP flow, 0 on the
+   host-match flow);
    - single-end: 16,384 reads of 150 bp (1% errors, half reverse-
      complemented), batch 1024; then the probe kernel at the benchmark
      cells' shapes (batches of reads drawn from the smoke genomes, as
      the extraction kernel's shapes, at cap 20) on the single-end
      classifier's wide index, equal to the plain torch body there, its
      device ms a launch beside its byte bound and the plain body's ms
-     ("probe kernel ..." lines);
+     ("probe kernel ..." lines); then the redundancy kernel
+     (csrc/redundancy.cu) on the resident tensors of one fused step of
+     each of those shapes, equal to the plain torch body on the stats
+     column and the pairs within the count, its device ms a launch
+     beside its byte bounds and the plain body's ms ("redundancy kernel
+     ..." lines);
    - paired-end (--seq-mode 2): 8,192 pairs of 2 x 150 bp, insert
      280-420, mate 2 reverse-complemented, batch 1024; the path DP must
      launch twice per dispatched batch (once per mate);
@@ -695,7 +702,8 @@ def drive(dp_cuda, clf, run):
     they count into the run's peak memory) for the timings.  `clf` is the
     classifier `run` uses, or a function that returns it after the run
     (a classifier that `run` makes, whose timer starts at zero)."""
-    from metabuli_work_tpu_torch.ops import encode_cuda, match_cuda
+    from metabuli_work_tpu_torch.ops import (encode_cuda, match_cuda,
+                                             redundancy_cuda)
 
     calls, first = [], {}
     launch = dp_cuda.path_dp_blocked
@@ -717,6 +725,7 @@ def drive(dp_cuda, clf, run):
     dp_cuda.launches = dp_cuda.warp_launches = 0
     dp_cuda.block_launches = dp_cuda.plain_cuda_calls = 0
     encode_cuda.launches = match_cuda.launches = 0
+    redundancy_cuda.launches = 0
     t0 = time.perf_counter()
     try:
         results = run()
@@ -726,6 +735,7 @@ def drive(dp_cuda, clf, run):
     dt = time.perf_counter() - t0
     extract_launches = encode_cuda.launches
     probe_launches = match_cuda.launches
+    redundancy_launches = redundancy_cuda.launches
     if callable(clf):
         clf = clf()
     return {"results": results, "dt": dt, "calls": calls, "first": first,
@@ -735,6 +745,9 @@ def drive(dp_cuda, clf, run):
             "extract_spans": clf.timer.counts["extract"],
             "probe_launches": probe_launches,
             "probe_spans": clf.timer.counts["probe"],
+            "redundancy_launches": redundancy_launches,
+            "redundancy_spans": clf.timer.counts["redundancy"]
+            + clf.timer.counts["assign"],
             "hashed": clf.use_device_dp,
             "dispatches": clf.timer.counts["dispatch"],
             "peak": torch.cuda.max_memory_allocated(), "base": base,
@@ -763,6 +776,7 @@ def check_launches(name, r, dp_cuda):
     assert counts["block"] == r["launches"] - n_small
     check_extract(name, r)
     check_probe(name, r)
+    check_redundancy(name, r)
 
 
 def check_extract(name, r):
@@ -789,6 +803,20 @@ def check_probe(name, r):
             f"{name}: {n} probe kernel launches for {spans} probe spans"
     else:
         assert n == 0, f"{name}: the probe kernel ran on a plain-probe flow"
+
+
+def check_redundancy(name, r):
+    """The run's finish went through the redundancy kernel (launched in
+    the `redundancy` span, or in `assign` on the device-assign flow; once
+    a dp row on the mesh), or, on the host-match flow, which has no such
+    step, never launched it."""
+    n, spans = r["redundancy_launches"], r["redundancy_spans"]
+    print(f"{name}: {n} redundancy kernel launches, {spans} redundancy or "
+          f"assign spans")
+    if r["hashed"]:
+        assert n > 0, f"{name}: the redundancy kernel never launched"
+    else:
+        assert n == 0, f"{name}: the redundancy kernel ran on host-match"
 
 
 def check_path(name, r, n_reads, src, dp_cuda, card, unit="reads",
@@ -1748,13 +1776,12 @@ def extract_phase(card):
 PROBE_CAP = 20                     # the gtdb40 cells' settled cap
 
 
-def probe_inputs(G, rng, clf, name, B, lmaxes):
-    """The CUDA query tensors (qk, qf, qv) of one benchmark shape,
-    extracted on the card from reads drawn from the smoke genomes: 150-bp
-    reads (or pairs) padded to 168, or log-normal long reads of 1-60 kb
-    padded to their length bucket."""
+def shape_reads(G, rng, name, B, lmaxes):
+    """The CUDA reads of one benchmark shape, drawn from the smoke
+    genomes: [reads1, lens1(, reads2, lens2)], 150-bp reads (or pairs)
+    padded to 168, or log-normal long reads of 1-60 kb padded to their
+    length bucket."""
     from metabuli_work_tpu_torch.classify.pipeline import _bucket_len
-    from metabuli_work_tpu_torch.models import flagship
 
     if name == "paired":
         mates = simulate_pairs(G, rng, B, READ_LEN)[:2]
@@ -1772,6 +1799,15 @@ def probe_inputs(G, rng, clf, name, B, lmaxes):
         for b, r in enumerate(rows):
             arr[b, :len(r)] = r
         parts += [torch.from_numpy(arr).cuda(), torch.from_numpy(lens).cuda()]
+    return parts
+
+
+def probe_inputs(G, rng, clf, name, B, lmaxes):
+    """The CUDA query tensors (qk, qf, qv) of one benchmark shape
+    (shape_reads), extracted on the card."""
+    from metabuli_work_tpu_torch.models import flagship
+
+    parts = shape_reads(G, rng, name, B, lmaxes)
     qk, _, qf, _, qv, _, _ = flagship.extract_queries_step(
         *parts, syncmer=clf.syncmer, smer_len=clf.smer_len,
         kmer_format=clf.kmer_format, win_frac=clf._win_frac)
@@ -1837,6 +1873,99 @@ def probe_phase(clf, G, card):
     return {"name": "probe", "variant": None, "path": first["path"],
             "route": "cuda",
             "source": "metabuli_work_tpu_torch/csrc/probe.cu",
+            "replaces": None, "launches": None,
+            "max_abs_err": 0, "ms": first["ms"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "shapes": shapes}
+
+
+def redundancy_phase(clf, G, card):
+    """The redundancy kernel (csrc/redundancy.cu) at the benchmark cells'
+    shapes (EXTRACT_SHAPES' batches of reads drawn from the smoke
+    genomes, cap PROBE_CAP), on the resident tensors of one fused_step_dp
+    of each on `clf`'s index, every read's best species the largest
+    species among its candidates (none for every third read): equal to
+    the plain torch body on the same CUDA tensors (the stats column and
+    the first min(count, width) pairs) at the host-scoring flows' prefix
+    width and at full width; the kernel's device ms a call (back to back,
+    at the prefix width) beside its byte bounds and the plain body's ms
+    a call.  The tight bound counts the sel byte of every candidate
+    slot, 12 B of fields a selected candidate, a position a slot, the
+    group minima and the pairs; the loose one 13 B a candidate slot.
+    Returns the kernels-line entry."""
+    from metabuli_work_tpu_torch.models import flagship
+    from metabuli_work_tpu_torch.ops import redundancy_cuda
+
+    rng = np.random.default_rng(20)
+    dna_shift = int(clf.taxonomer.dna_shift)
+    shapes = []
+    for name, B, lmaxes in EXTRACT_SHAPES:
+        parts = shape_reads(G, rng, name, B, lmaxes)
+        r2, j2 = parts[2:] if len(parts) > 2 else (None, None)
+        _, res = flagship.fused_step_dp(
+            parts[0], parts[1], clf.db_quad, reads2=r2, lens2=j2,
+            min_cons=int(clf.params.min_cons_cnt),
+            min_cons_euk=int(clf.params.min_cons_cnt_euk), cap=PROBE_CAP,
+            kmer_format=clf.kmer_format, syncmer=clf.syncmer,
+            smer_len=clf.smer_len, path_width=clf._path_width,
+            win_frac=clf._win_frac, path_block=clf._path_block,
+            **clf._probe_kw)
+        sel, species, qs = res[0], res[1], res[5]
+        best = torch.zeros(B + 1, dtype=torch.int32, device=sel.device)
+        best.scatter_reduce_(0, qs.long(), torch.where(sel, species, 0)
+                             .max(0).values, reduce="amax")
+        best[::3] = 0
+        lm1 = parts[0].shape[1]
+        lm2 = r2.shape[1] if r2 is not None else None
+        kw = dict(dna_shift=dna_shift,
+                  n_quot=(lm1 + (lm2 + 3 if lm2 else 0)) // dna_shift + 2,
+                  part_w=flagship.part_widths(
+                      lm1, clf.syncmer, clf.kmer_format, clf.smer_len,
+                      clf._win_frac, lmax2=lm2))
+        args = (*res, best, clf.euler, clf.lca_depth, clf.lca_lift)
+        for out_w in (0, clf._pair_width):
+            got = flagship.redundancy_counts(*args, out_w=out_w, **kw)
+            ref = flagship.redundancy_counts_ref(*args, out_w=out_w, **kw)
+            torch.cuda.synchronize()
+            count = int(ref[0, 0])
+            k = 1 + min(count, ref.shape[1] - 1)
+            assert got.shape == ref.shape and count > 0 and \
+                torch.equal(got[:, :k], ref[:, :k]), \
+                f"redundancy kernel != plain ({name}, out_w {out_w})"
+        call = lambda: flagship.redundancy_counts(
+            *args, out_w=clf._pair_width, **kw)
+        plain = lambda: flagship.redundancy_counts_ref(
+            *args, out_w=clf._pair_width, **kw)
+        n0 = redundancy_cuda.launches
+        ms = time_cuda(call, 50, queue_ahead=True)
+        torch.cuda.synchronize()
+        assert redundancy_cuda.launches - n0 == 51, "one launch a call"
+        plain_ms = time_cuda(plain, 3)
+        torch.cuda.synchronize()
+        cap, n = sel.shape
+        n_groups = B * kw["n_quot"]
+        n_sel = int(sel.sum())
+        tight = cap * n + 12 * n_sel + 4 * n + 8 * n_groups \
+            + 8 * min(count, clf._pair_width)
+        loose = 13 * cap * n
+        tight_ms = tight / HBM_BYTES_PER_S * 1e3
+        loose_ms = loose / HBM_BYTES_PER_S * 1e3
+        print(f"redundancy kernel {name} (B={B}, {n} slots, cap {cap}, "
+              f"{n_sel} selected, {int(ref[1, 0])} best-species matches, "
+              f"{n_groups} groups, {count} pairs): {ms:.4f} ms/launch, "
+              f"byte bound {tight_ms:.4f} ms ({tight} B), {loose_ms:.4f} "
+              f"ms at 13 B a candidate slot ({loose} B), plain body "
+              f"{plain_ms:.3f} ms; exact on {card}")
+        shapes.append({"path": name, "B": B, "slots": n, "cap": cap,
+                       "selected": n_sel, "groups": n_groups,
+                       "pairs": count, "ms": ms, "bound_ms": tight_ms,
+                       "bound_loose_ms": loose_ms, "bound_by": "bytes",
+                       "plain_ms": plain_ms, "max_abs_err": 0})
+        del res, sel, species, qs, args, got, ref
+    first = shapes[0]
+    return {"name": "redundancy", "variant": None, "path": first["path"],
+            "route": "cuda",
+            "source": "metabuli_work_tpu_torch/csrc/redundancy.cu",
             "replaces": None, "launches": None,
             "max_abs_err": 0, "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
@@ -2461,6 +2590,7 @@ def dist_worker(argv):
     # one probe a cell of the process's row (2 db columns) a dispatch
     assert r["probe_launches"] == 2 * r["probe_spans"] > 0, \
         (r["probe_launches"], r["probe_spans"])
+    assert r["redundancy_launches"] > 0
     max_err = {"warp": 0, "block": 0}
     for key, (args, kw) in r["first"].items():
         ref = dp_cuda.path_dp_blocked_ref(*args, **kw)
@@ -2472,6 +2602,7 @@ def dist_worker(argv):
                    "launches": r["launches"], "counts": r["counts"],
                    "extract_launches": r["extract_launches"],
                    "probe_launches": r["probe_launches"],
+                   "redundancy_launches": r["redundancy_launches"],
                    "dispatches": r["dispatches"], "dt": r["dt"],
                    "merged": clf.mesh_merged_bytes - m0,
                    "max_err": max_err}, f)
@@ -2606,10 +2737,12 @@ def smoke(prep, prep_dir, profiled, seed):
                          N_READS, card, N_READS // BATCH)
         lap("single-end")
         probe_kernel = probe_phase(clf, G, card)
+        lap("probe kernel")
+        redundancy_kernel = redundancy_phase(clf, G, card)
         clf = None
         torch.cuda.empty_cache()
 
-        lap("probe kernel")
+        lap("redundancy kernel")
 
         # ------------------------------------------------ paired-end
         m1, m2, src2 = simulate_pairs(G, np.random.default_rng(2), N_PAIRS,
@@ -3026,6 +3159,7 @@ def smoke(prep, prep_dir, profiled, seed):
             assert part["records"] and part["launches"] > 0
             assert part["extract_launches"] > 0
             assert part["probe_launches"] > 0
+            assert part["redundancy_launches"] > 0
             for k, v in part["records"].items():
                 assert k not in merged, f"read {k} scored by two processes"
                 merged[k] = v
@@ -3260,6 +3394,15 @@ def smoke(prep, prep_dir, profiled, seed):
                if p == "distributed" or runs[p]["hashed"]), \
         f"probe kernel not launched: {by_path}"
     kernels.append(dict(probe_kernel, launches=sum(by_path.values()),
+                        launches_by_path=by_path))
+    # the redundancy kernel's, likewise (0 on the host-match flow)
+    by_path = {p: r["redundancy_launches"] for p, r in runs.items()}
+    by_path["distributed"] = sum(p["redundancy_launches"]
+                                 for p in dist_parts)
+    assert all(n > 0 for p, n in by_path.items()
+               if p == "distributed" or runs[p]["hashed"]), \
+        f"redundancy kernel not launched: {by_path}"
+    kernels.append(dict(redundancy_kernel, launches=sum(by_path.values()),
                         launches_by_path=by_path))
     prep.close()
     lap("main-path parity and timings")

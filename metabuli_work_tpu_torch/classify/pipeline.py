@@ -1170,9 +1170,9 @@ class Classifier:
             if deferred:
                 best_sp = np.zeros((self._grid.shape["dp"], Bl + 1),
                                    dtype=np.int32)
-                for rid, _, _, taxid in deferred:
-                    s, r = divmod(rid - 1, Bl)
-                    best_sp[s, r + 1] = taxid
+                rid, _, _, taxid = zip(*deferred)
+                r = np.array(rid) - 1
+                best_sp[r // Bl, r % Bl + 1] = taxid
                 red = make_sharded_redundancy(
                     self._grid, dna_shift=int(self.taxonomer.dna_shift),
                     n_quot=ctx["n_quot"], part_w=ctx["part_w"])

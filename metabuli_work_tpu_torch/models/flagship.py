@@ -36,7 +36,8 @@ import torch
 
 from ..device import resolve_device
 from ..ops import (assign_torch, compact_torch, dp_cuda, dp_torch,
-                   encode_cuda, encode_torch, match_cuda, match_torch)
+                   encode_cuda, encode_torch, match_cuda, match_torch,
+                   redundancy_cuda)
 
 
 def _no_stage(name):
@@ -423,7 +424,27 @@ def redundancy_counts(sel, species, ham, ef, q_pos, q_sids,
                       best_sp_per_read, euler, depth, lift, *,
                       dna_shift: int, n_quot: int, part_w: tuple = (),
                       out_w: int = 0):
-    """Best-species redundancy filter + grouped LCA on the device.
+    """Best-species redundancy filter + grouped LCA on the device: the
+    CUDA kernel for CUDA tensors (ops/redundancy_cuda.py: one launch,
+    equal to redundancy_counts_ref on column 0 and on the first
+    min(count, width) pairs; the columns past the count are not
+    written), redundancy_counts_ref for CPU tensors."""
+    if sel.is_cuda:
+        return redundancy_cuda.redundancy(
+            sel, species, ham, ef, q_pos, q_sids, best_sp_per_read, euler,
+            depth, lift, dna_shift=dna_shift, n_quot=n_quot, part_w=part_w,
+            out_w=out_w)
+    return redundancy_counts_ref(
+        sel, species, ham, ef, q_pos, q_sids, best_sp_per_read, euler, depth,
+        lift, dna_shift=dna_shift, n_quot=n_quot, part_w=part_w, out_w=out_w)
+
+
+def redundancy_counts_ref(sel, species, ham, ef, q_pos, q_sids,
+                          best_sp_per_read, euler, depth, lift, *,
+                          dna_shift: int, n_quot: int, part_w: tuple = (),
+                          out_w: int = 0):
+    """Best-species redundancy filter + grouped LCA in plain torch (the
+    CUDA kernel's plain version; any device).
 
     Groups each read's best-species matches by query pos // dna_shift,
     keeps the min-hamming rows per group, and reduces each group to one

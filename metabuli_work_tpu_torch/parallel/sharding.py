@@ -425,15 +425,23 @@ def make_sharded_redundancy(mesh, *, dna_shift: int, n_quot: int,
     out_w=0) runs flagship.redundancy_counts on each local row's resident
     tensors with its row of best_sp ([dp, B_row + 1] int32, host) and the
     taxonomy tables of the row's device (tables[device] = (euler,
-    lca_depth, lca_lift)); returns {row: packed2}."""
+    lca_depth, lca_lift)); returns {row: packed2}.  On a card the row's
+    best_sp goes up from a pinned copy without blocking, the row's first
+    device operation (the kernel follows it on the stream).  The caching
+    host allocator that hands out the pinned buffer reuses it only once
+    the copy has landed, so a batch in flight never reads a later
+    batch's values."""
     def red(residents, best_sp, tables, out_w=0):
         out = {}
         for i, res in residents.items():
             dev = mesh.row_device(i)
-            bsp = torch.from_numpy(np.ascontiguousarray(best_sp[i])).to(dev)
+            bsp = torch.from_numpy(np.ascontiguousarray(best_sp[i]))
+            if dev.type == "cuda":
+                bsp = bsp.pin_memory()
             out[i] = flagship.redundancy_counts(
-                *res, bsp, *tables[dev], dna_shift=dna_shift, n_quot=n_quot,
-                part_w=part_w, out_w=out_w)
+                *res, bsp.to(dev, non_blocking=True), *tables[dev],
+                dna_shift=dna_shift, n_quot=n_quot, part_w=part_w,
+                out_w=out_w)
         return out
 
     return red

@@ -29,6 +29,7 @@ CUDA_LIBRARIES = {
     "path_dp_warp": ("path_dp_warp.cu", ["path_dp_common.cuh"]),
     "extract": ("extract.cu", []),
     "probe": ("probe.cu", []),
+    "redundancy": ("redundancy.cu", []),
 }
 _cuda_libs = None
 _cuda_lock = threading.Lock()
@@ -83,7 +84,8 @@ def cuda_libraries():
     """The CUDA_LIBRARIES, compiled by nvcc (sm_90a) at first use, all at
     once in parallel (a first run waits for the slowest build, not for
     their sum), and loaded with ctypes: {name: CDLL}.  The callers
-    (ops/dp_cuda.py, ops/encode_cuda.py, ops/match_cuda.py) declare
+    (ops/dp_cuda.py, ops/encode_cuda.py, ops/match_cuda.py,
+    ops/redundancy_cuda.py) declare
     their functions' types."""
     global _cuda_libs
     with _cuda_lock:
