@@ -75,101 +75,109 @@ def species_unique_kmer_counts(index, db_dir=None):
 def run_em(records, classifier, out_dir, job_id, max_iter=1000, tol=1e-6):
     """Write <job>_mapping_results.txt, the EM report and the
     reclassification (results and report) into out_dir; returns
-    {"iterations", "species", "mapped"} (None when no read mapped)."""
+    {"iterations", "species", "mapped", "mappings"} (None when no read
+    mapped).  On the classifier's timer it opens `em` around the pass,
+    with `em_map` (the mapping file's write and reload, the per-mapping
+    weights and indices), `em_iter` (the iterations) and
+    `em_reclassify` (the reclassification, both reports and the results
+    file) nested in it."""
     tax = classifier.taxonomy
-    # classify's mapping output first (reference writes the binary
-    # MappingRes stream during classification, then em() re-reads it)
-    mapping_path = os.path.join(out_dir, f"{job_id}_mapping_results.txt")
-    n_map = write_mapping_results(mapping_path, records)
-    if n_map == 0:
-        print("EM: no mappings, skipping")
-        return
-    qids, sps, scores = load_mapping_results(mapping_path)
+    stage = classifier.timer.stage
+    with stage("em"):
+        with stage("em_map"):
+            # classify's mapping output first (reference writes the binary
+            # MappingRes stream during classification, then em() re-reads it)
+            mapping_path = os.path.join(out_dir, f"{job_id}_mapping_results.txt")
+            n_map = write_mapping_results(mapping_path, records)
+            if n_map == 0:
+                print("EM: no mappings, skipping")
+                return
+            qids, sps, scores = load_mapping_results(mapping_path)
 
-    sp_kmers = species_unique_kmer_counts(classifier.index,
-                                          getattr(classifier, "db_dir", None))
-    lf = np.array([1.0 / np.log(sp_kmers[s]) if sp_kmers.get(s, 0) > 1 else 0.0 for s in sps])
+            sp_kmers = species_unique_kmer_counts(classifier.index,
+                                                  getattr(classifier, "db_dir", None))
+            lf = np.array([1.0 / np.log(sp_kmers[s]) if sp_kmers.get(s, 0) > 1 else 0.0 for s in sps])
 
-    sp_list = np.unique(sps)
-    sp_idx = {int(s): i for i, s in enumerate(sp_list)}
-    sp_pos = np.array([sp_idx[int(s)] for s in sps])
-    probs = np.full(len(sp_list), 1.0 / len(sp_list))
+            sp_list = np.unique(sps)
+            sp_idx = {int(s): i for i, s in enumerate(sp_list)}
+            sp_pos = np.array([sp_idx[int(s)] for s in sps])
+            w_base = scores * lf
+        with stage("em_iter"):
+            probs = np.full(len(sp_list), 1.0 / len(sp_list))
+            n_queries = int(qids.max()) + 1
+            query_count = 0
+            for it in range(max_iter):
+                w = w_base * probs[sp_pos]
+                denom = np.bincount(qids, weights=w, minlength=n_queries)
+                ok = denom[qids] > 0
+                frac = np.zeros_like(w)
+                frac[ok] = w[ok] / denom[qids][ok]
+                f_new = np.bincount(sp_pos, weights=frac, minlength=len(sp_list))
+                query_count = int((np.bincount(qids, weights=None, minlength=n_queries) > 0)[denom > 0].sum())
+                qc = int((denom > 0).sum())
+                f_new = f_new / max(qc, 1)
+                delta = np.abs(f_new - probs).sum()
+                if it > 10:
+                    f_new[f_new < 1e-5] = 0.0
+                probs = f_new
+                query_count = qc
+                if delta < tol:
+                    break
+        with stage("em_reclassify"):
+            # EM report
+            em_counts = {int(sp_list[i]): probs[i] * query_count for i in range(len(sp_list)) if probs[i] > 0}
+            em_tax_counts = {t: int(round(c)) for t, c in em_counts.items() if c >= 0.5}
+            em_tax_counts[0] = len(records) - sum(em_tax_counts.values())
+            reporter.write_report(os.path.join(out_dir, f"{job_id}_EM_report.tsv"),
+                                  em_tax_counts, len(records), tax)
 
-    n_queries = int(qids.max()) + 1
-    w_base = scores * lf
-    query_count = 0
-    for it in range(max_iter):
-        w = w_base * probs[sp_pos]
-        denom = np.bincount(qids, weights=w, minlength=n_queries)
-        ok = denom[qids] > 0
-        frac = np.zeros_like(w)
-        frac[ok] = w[ok] / denom[qids][ok]
-        f_new = np.bincount(sp_pos, weights=frac, minlength=len(sp_list))
-        query_count = int((np.bincount(qids, weights=None, minlength=n_queries) > 0)[denom > 0].sum())
-        qc = int((denom > 0).sum())
-        f_new = f_new / max(qc, 1)
-        delta = np.abs(f_new - probs).sum()
-        if it > 10:
-            f_new[f_new < 1e-5] = 0.0
-        probs = f_new
-        query_count = qc
-        if delta < tol:
-            break
+            # reclassify: per read, LCA of the top species reaching 0.5 posterior
+            # (reference Classifier::reclassify, Classifier.cpp:326-388) —
+            # vectorized: the per-query candidate set is the PREFIX (in
+            # descending-weight order) whose exclusive cumulative posterior is
+            # < 0.5, so one global cumsum + a segmented LCA reduction replace the
+            # per-query Python loop (VERDICT r1 weak 6; 15M reads feasible).
+            w = w_base * probs[sp_pos]
+            denom = np.bincount(qids, weights=w, minlength=n_queries)
+            order = np.lexsort((-w, qids))
+            qs, ws_, ss_ = qids[order], w[order], sps[order]
+            boundaries = np.searchsorted(qs, np.arange(n_queries + 1))
+            dq = denom[qs]
+            p = np.zeros_like(ws_)
+            np.divide(ws_, dq, out=p, where=dq > 0)
+            cum = np.cumsum(p)
+            starts = boundaries[:-1]
+            seg_len = boundaries[1:] - starts
+            off_per_q = np.where(starts > 0, cum[np.maximum(starts - 1, 0)], 0.0)
+            seg_off = np.repeat(off_per_q, seg_len)
+            cum_excl = cum - p - seg_off
+            keep = (cum_excl < 0.5) & (dq > 0)     # prefix per segment (p >= 0)
+            recls_counts = {}
+            recls_rows = []
+            if keep.any():
+                kq = qs[keep]
+                uq, dense = np.unique(kq, return_inverse=True)
+                lcas = tax.lca_reduce(ss_[keep].astype(np.int64), dense, len(uq))
+                cnt = np.bincount(dense, minlength=len(uq))
+                last = boundaries[uq] + cnt - 1
+                scs = (cum - seg_off)[last]
+                for qi, t, sc in zip(uq.tolist(), lcas.tolist(), scs.tolist()):
+                    t = int(t)
+                    recls_rows.append((int(qi), t, float(sc)))
+                    recls_counts[t] = recls_counts.get(t, 0) + 1
+            recls_counts[0] = len(records) - sum(recls_counts.values())
+            reporter.write_report(os.path.join(out_dir, f"{job_id}_EM+reclassify_report.tsv"),
+                                  recls_counts, len(records), tax)
 
-    # EM report
-    em_counts = {int(sp_list[i]): probs[i] * query_count for i in range(len(sp_list)) if probs[i] > 0}
-    em_tax_counts = {t: int(round(c)) for t, c in em_counts.items() if c >= 0.5}
-    em_tax_counts[0] = len(records) - sum(em_tax_counts.values())
-    reporter.write_report(os.path.join(out_dir, f"{job_id}_EM_report.tsv"),
-                          em_tax_counts, len(records), tax)
-
-    # reclassify: per read, LCA of the top species reaching 0.5 posterior
-    # (reference Classifier::reclassify, Classifier.cpp:326-388) —
-    # vectorized: the per-query candidate set is the PREFIX (in
-    # descending-weight order) whose exclusive cumulative posterior is
-    # < 0.5, so one global cumsum + a segmented LCA reduction replace the
-    # per-query Python loop (VERDICT r1 weak 6; 15M reads feasible).
-    w = w_base * probs[sp_pos]
-    denom = np.bincount(qids, weights=w, minlength=n_queries)
-    order = np.lexsort((-w, qids))
-    qs, ws_, ss_ = qids[order], w[order], sps[order]
-    boundaries = np.searchsorted(qs, np.arange(n_queries + 1))
-    dq = denom[qs]
-    p = np.zeros_like(ws_)
-    np.divide(ws_, dq, out=p, where=dq > 0)
-    cum = np.cumsum(p)
-    starts = boundaries[:-1]
-    seg_len = boundaries[1:] - starts
-    off_per_q = np.where(starts > 0, cum[np.maximum(starts - 1, 0)], 0.0)
-    seg_off = np.repeat(off_per_q, seg_len)
-    cum_excl = cum - p - seg_off
-    keep = (cum_excl < 0.5) & (dq > 0)     # prefix per segment (p >= 0)
-    recls_counts = {}
-    recls_rows = []
-    if keep.any():
-        kq = qs[keep]
-        uq, dense = np.unique(kq, return_inverse=True)
-        lcas = tax.lca_reduce(ss_[keep].astype(np.int64), dense, len(uq))
-        cnt = np.bincount(dense, minlength=len(uq))
-        last = boundaries[uq] + cnt - 1
-        scs = (cum - seg_off)[last]
-        for qi, t, sc in zip(uq.tolist(), lcas.tolist(), scs.tolist()):
-            t = int(t)
-            recls_rows.append((int(qi), t, float(sc)))
-            recls_counts[t] = recls_counts.get(t, 0) + 1
-    recls_counts[0] = len(records) - sum(recls_counts.values())
-    reporter.write_report(os.path.join(out_dir, f"{job_id}_EM+reclassify_report.tsv"),
-                          recls_counts, len(records), tax)
-
-    with open(os.path.join(out_dir, f"{job_id}_EM+reclassify_results.tsv"), "w") as f:
-        f.write("#is_classified\tname\ttaxID\tquery_length\tscore\trank\n")
-        by_q = {qi: (t, sc) for qi, t, sc in recls_rows}
-        for qi, qr in enumerate(records):
-            t, sc = by_q.get(qi, (0, 0.0))
-            if t:
-                f.write(f"1\t{qr.name}\t{tax.orig_of(t)}\t{qr.covered_length}\t{sc:.4g}\t{tax.rank_of(t)}\n")
-            else:
-                f.write(f"0\t{qr.name}\t0\t{qr.covered_length}\t0\t-\n")
+            with open(os.path.join(out_dir, f"{job_id}_EM+reclassify_results.tsv"), "w") as f:
+                f.write("#is_classified\tname\ttaxID\tquery_length\tscore\trank\n")
+                by_q = {qi: (t, sc) for qi, t, sc in recls_rows}
+                for qi, qr in enumerate(records):
+                    t, sc = by_q.get(qi, (0, 0.0))
+                    if t:
+                        f.write(f"1\t{qr.name}\t{tax.orig_of(t)}\t{qr.covered_length}\t{sc:.4g}\t{tax.rank_of(t)}\n")
+                    else:
+                        f.write(f"0\t{qr.name}\t0\t{qr.covered_length}\t0\t-\n")
     print(f"EM re-estimation complete ({len(sp_list)} species, {query_count} mapped reads)")
     return {"iterations": it + 1, "species": len(sp_list),
-            "mapped": query_count}
+            "mapped": query_count, "mappings": n_map}

@@ -180,9 +180,6 @@ def cmd_classify(args):
     print(f"Classified {len(results)} reads in {dt:.2f}s "
           f"({len(results)/max(dt,1e-9):.0f} reads/s)")
     print(f"Total k-mer match count: {clf.total_match_cnt}")
-    if args.print_timers:
-        print(clf.timer.report())
-        print(f"peak_rss_gb\t{rss_gb():.2f}")
 
     paths = reporter.write_all(args.outdir, args.jobid, results, clf.taxonomy,
                                print_lineage=args.print_lineage)
@@ -190,6 +187,9 @@ def cmd_classify(args):
         from .classify.em import run_em
 
         run_em(results, clf, args.outdir, args.jobid)
+    if args.print_timers:
+        print(clf.timer.report())
+        print(f"peak_rss_gb\t{rss_gb():.2f}")
     for p in paths:
         print(f"Wrote {p}")
 

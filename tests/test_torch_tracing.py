@@ -18,6 +18,8 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from metabuli_work_tpu_torch import cli as tcli
+from metabuli_work_tpu_torch.classify.em import run_em
 from metabuli_work_tpu_torch.classify.pipeline import Classifier, ClassifyParams
 from metabuli_work_tpu_torch.index.builder import build_database as tbuild
 from metabuli_work_tpu_torch.index.format import load_index
@@ -185,6 +187,46 @@ def test_setup_times_survive_the_timer(data):
                                  ClassifyParams(seq_mode=2, **PARAMS),
                                  device="cpu")
     assert set(mem.setup_times) == {"layout", "upload"}
+
+
+EM_STEPS = ["em_map", "em_iter", "em_reclassify"]
+
+
+def test_em_spans_nested(data, tmp_path):
+    """run_em opens `em` on the classifier's timer, outside every other
+    span, with its three steps nested in it in order, once a pass."""
+    clf = Classifier(data["db"], ClassifyParams(seq_mode=1, em=True,
+                                                **PARAMS), device="cpu")
+    results = clf.classify_file(data["path"])
+    clf.timer = Tree()
+    for k in range(2):
+        st = run_em(results, clf, str(tmp_path), f"job{k}")
+        assert st["mappings"] >= st["mapped"] > 0
+    t = clf.timer
+    ems = t.ids("em")
+    assert len(ems) == 2
+    for e in ems:
+        assert t.children(e) == EM_STEPS
+        assert [p for s, _, p, _, _ in t.log if s == e] == [None]
+    for name in EM_STEPS:
+        assert t.counts[name] == 2
+    assert t.totals["em"] >= sum(t.totals[n] for n in EM_STEPS)
+
+
+def test_cli_print_timers_lists_em(data, tmp_path, capsys):
+    """classify --em --print-timers prints the timer after the EM pass,
+    so its table lists the four EM spans."""
+    out = str(tmp_path / "out")
+    assert tcli.main(["classify", data["path"], data["db"], out, "job",
+                      "--seq-mode", "1", "--batch-size", "8", "--em",
+                      "--print-timers", "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    table = {ln.split("\t")[0]: ln for ln in
+             lines[lines.index("stage\ttotal_s\tcalls\tper_call_ms"):]}
+    for name in ["em"] + EM_STEPS:
+        assert table[name].split("\t")[2] == "1", name
+    assert {"score", "dispatch"} <= set(table)
+    assert os.path.exists(os.path.join(out, "job_EM_report.tsv"))
 
 
 @pytest.fixture(scope="module")
