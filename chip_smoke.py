@@ -1104,6 +1104,7 @@ def em_phase(dp_cuda, classifier, fa, runs, src, card):
 
     clf._dispatch_batch_full = refuse
     clf.classify_file(fa("warm.fna"))
+    clf.taxonomer.species_list_reads = 0
     r = runs["em"] = drive(dp_cuda, clf,
                            lambda: clf.classify_file(fa("reads.fna")))
     assert r["launches"] > 0
@@ -1121,7 +1122,10 @@ def em_phase(dp_cuda, classifier, fa, runs, src, card):
     st = run_em(r["results"], clf, out, "em")
     t_em = time.perf_counter() - t0
     n_sc = sum(bool(q.result.species_scores) for q in r["results"])
-    print(f"em: {N_READS} reads, {n_sc} with species scores, "
+    n_listed = clf.taxonomer.species_list_reads
+    assert n_listed == n_sc, (n_listed, n_sc)
+    print(f"em: {N_READS} reads, {n_sc} with species scores (the "
+          f"scorer's species_list_reads {n_listed}), "
           f"{N_READS / r['dt']:.1f} reads/s (the plain single-end run "
           f"{N_READS / runs['single-end']['dt']:.1f}); no device-assign "
           f"dispatch with METABULI_DEVICE_ASSIGN=1 set; run_em "

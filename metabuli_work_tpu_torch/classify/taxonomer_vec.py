@@ -14,6 +14,10 @@ Python loops into whole-batch array passes:
   scalar implementation bit-for-bit;
 * redundancy filtering (min-hamming per position quotient, ties -> LCA)
   becomes grouped reductions keyed by (read, quotient);
+* species selection, with or without the EM species lists (a stable
+  per-read sort by score, top 10, ties as a prefix of that order), is
+  segment reductions over the species runs; per read, only the loop
+  that hands each ReadResult its fields remains;
 * only the greedy path-combination and the sub-species BFS remain as
   small host loops over paths / taxon counts (both tiny per read).
 
@@ -26,7 +30,7 @@ from typing import Dict, List
 
 import numpy as np
 
-from .taxonomer import MatchPath, ReadResult, Taxonomer
+from .taxonomer import ReadResult, Taxonomer
 
 
 def _f32(x):
@@ -221,6 +225,11 @@ def _combine_hard(ps, pe, psc, prhs, prhe, valid):
 
 class VectorTaxonomer(Taxonomer):
     """Drop-in Taxonomer that classifies a whole batch in array passes."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        # reads that score_paths handed a species list (em), all batches
+        self.species_list_reads = 0
 
     def classify_batch(self, m: np.ndarray, query_lengths: np.ndarray,
                        n_reads: int) -> List[ReadResult]:
@@ -455,13 +464,11 @@ class VectorTaxonomer(Taxonomer):
         Returns deferred = [(rid, qlen, score, best_species)] for reads
         that need the redundancy-filter + lower-rank stage.
 
-        Dispatches to the vectorized pass unless EM output is requested
-        (the EM path also stores per-read top-10 (species, score^2)
-        lists, which stay a small loop).
+        One vectorized pass; under EM output its per-read selection is
+        `_score_species_lists`, which also stores each read's top-10
+        (species, score^2) list.
         """
-        if not self.em:
-            return self._score_paths_vec(paths, query_lengths, results)
-        return self._score_paths_loop(paths, query_lengths, results)
+        return self._score_paths_vec(paths, query_lengths, results)
 
     def _score_paths_vec(self, paths, query_lengths, results: List[ReadResult]):
         """Vectorized score_paths: segment reductions over species runs.
@@ -544,6 +551,9 @@ class VectorTaxonomer(Taxonomer):
         best1 = np.full(n_reads + 1, -np.inf, dtype=np.float32)
         np.maximum.at(best1, kq, ksc)
         best = best1[1:]
+        if self.em:
+            return self._score_species_lists(kq, ksc, run_sp[ki], best, live,
+                                             query_lengths, results)
 
         thr = (best.astype(np.float64) * self.tie_ratio).astype(np.float32)
         tiem = ksc >= thr[kq - 1]
@@ -591,111 +601,74 @@ class VectorTaxonomer(Taxonomer):
                              int(first_tied[r])))
         return deferred
 
-    def _score_paths_loop(self, paths, query_lengths, results: List[ReadResult]):
-        """Scalar per-read loop (EM mode: also stores top-10 species)."""
-        n_reads = len(results)
-        # paths arrive ordered by match index = (qid, species, frame, pos)
-        # order, so both read spans and species runs are contiguous
-        pq = paths["qid"]
-        ps = paths["species"]
-        read_bounds = np.searchsorted(pq, np.arange(1, n_reads + 2))
-        sp_run_start = np.nonzero(
-            np.concatenate([[True], (pq[1:] != pq[:-1]) | (ps[1:] != ps[:-1])])
-        )[0] if len(pq) else np.zeros(0, np.int64)
-        sp_run_end = np.append(sp_run_start[1:], len(pq))
+    def _score_species_lists(self, kq, ksc, ksp, best, live, query_lengths,
+                             results: List[ReadResult]):
+        """The EM selection of `_score_paths_vec` (Taxonomer._best_species
+        under em) over the kept runs (1-based read kq, f32 score ksc,
+        species ksp; read-major order).
 
-        p_start = paths["start"]
-        p_end = paths["end"]
-        p_score = paths["score"]
-        p_ham = paths["hamming"]
-        # depth is only an emission filter; device-emitted paths omit it
-        p_depth = paths.get("depth")
-        if p_depth is None:
-            p_depth = np.zeros(len(pq), dtype=np.int64)
-        p_rhs = paths["rh_start"]
-        p_rhe = paths["rh_end"]
+        * a read's kept runs are sorted by descending f32 score, stably
+          (the scalar `sort(key=lambda x: -x[1])`);
+        * species_scores = the first 10 as (species, f64 square of the
+          f32 score); top_species = the first of the order;
+        * a run ties where f64(score) >= f64(best) * tie_ratio (no f32
+          rounding of the threshold, unlike the plain pass), so the tied
+          runs are a prefix of the order, and `total` adds them in f32
+          in that order.
+        """
+        rows = np.nonzero(live)[0]                 # 0-based live reads
+        lv = live[kq - 1]
+        kq, ksc, ksp = kq[lv], ksc[lv], ksp[lv]
+        order = np.lexsort((-ksc, kq))
+        ssc, ssp = ksc[order], ksp[order]
+        n_live = len(rows)
+        read_of = np.searchsorted(rows, kq - 1)    # live index, ascending
+        cnt = np.bincount(read_of, minlength=n_live)
+        first = np.cumsum(cnt) - cnt               # each read's first sorted run
+        rank = np.arange(len(ssc)) - first[read_of]
+        self.species_list_reads += n_live
 
-        # iterate reads that have paths
-        deferred = []  # (rid, lo, hi, qlen, score, taxid) pending tax_cnt
-        for rid in range(1, n_reads + 1):
-            plo, phi = read_bounds[rid - 1], read_bounds[rid]
-            res = results[rid - 1]
-            qlen = int(query_lengths[rid])
-            if plo == phi:
-                continue
+        top = rank < 10
+        sc64 = ssc[top].astype(np.float64)
+        pairs = list(zip(ssp[top].tolist(), (sc64 * sc64).tolist()))
+        bounds = np.cumsum(np.minimum(cnt, 10)).tolist()
 
-            sp2score = []
-            best_sp_score = _f32(0.0)
-            best_sp = None
-            meaningful = 0
-            run0 = int(np.searchsorted(sp_run_start, plo))
-            run1 = int(np.searchsorted(sp_run_start, phi))
-            for run in range(run0, run1):
-                a, b = int(sp_run_start[run]), int(sp_run_end[run])
-                sp = ps[a]
-                if b - a == 1:
-                    # single-path run (the common case): combine == score/len
-                    sc = _f32(p_score[a]) / _f32(qlen)
-                else:
-                    plist = [
-                        MatchPath(
-                            start=int(p_start[j]),
-                            end=int(p_end[j]),
-                            score=p_score[j],
-                            hamming=int(p_ham[j]),
-                            depth=int(p_depth[j]),
-                            rh_start=int(p_rhs[j]),
-                            rh_end=int(p_rhe[j]),
-                        )
-                        for j in range(a, b)
-                    ]
-                    sc = self._combine_paths(plist, qlen)
-                sc = min(sc, _f32(1.0))
-                if sc < self.min_score:
-                    continue
-                sp2score.append((int(sp), float(sc)))
-                if sc > 0:
-                    meaningful += 1
-                if sc > best_sp_score:
-                    best_sp_score = sc
-                    best_sp = int(sp)
+        thr = best[rows].astype(np.float64) * self.tie_ratio
+        tied = ssc.astype(np.float64) >= thr[read_of]
+        tie_cnt = np.bincount(read_of[tied], minlength=n_live)
+        total = np.zeros(n_live, dtype=np.float32)
+        for k in range(int(tie_cnt.max())):
+            sel = np.nonzero(tie_cnt > k)[0]
+            total[sel] = total[sel] + ssc[first[sel] + k]
 
-            if meaningful == 0:
-                continue
+        multi = tie_cnt > 1
+        lca = self.taxonomy.lca_reduce(ssp[tied], read_of[tied], n_live) \
+            if multi.any() else np.zeros(n_live, dtype=np.int64)
+        score = np.where(multi, total / tie_cnt.astype(np.float32), total)
+        passed = ~((score == 0) | (score < self.min_score))
+        won = multi & passed                       # classified to the LCA
+        set_score = multi | ~passed
 
-            if self.em and sp2score:
-                sp2score.sort(key=lambda x: -x[1])
-            res.species_scores = [(s, sc * sc) for s, sc in sp2score[:10]] \
-            if (self.em and sp2score) else ()
-            if sp2score:
-                res.top_species = sp2score[0][0]
+        top_sp = ssp[first]
+        d = np.nonzero(~multi & passed)[0]
+        deferred = list(zip((rows[d] + 1).tolist(),
+                            query_lengths[rows[d] + 1].tolist(),
+                            list(total[d]), top_sp[d].tolist()))
 
-            max_species = []
-            total = _f32(0.0)
-            for sp, sc in sp2score:
-                if sc >= float(best_sp_score) * self.tie_ratio:
-                    max_species.append(sp)
-                    total = total + _f32(sc)
-
-            if len(max_species) > 1:
-                lca = int(self.taxonomy.lca_list(max_species))
-                score = total / _f32(len(max_species))
-                if score == 0 or score < self.min_score:
-                    res.score = float(score)
-                    continue
+        lo = 0
+        for r, hi, t, s, w, ss, c in zip(
+                rows.tolist(), bounds, top_sp.tolist(),
+                score.astype(np.float64).tolist(), won.tolist(),
+                set_score.tolist(), lca.tolist()):
+            res = results[r]
+            res.species_scores = pairs[lo:hi]
+            res.top_species = t
+            lo = hi
+            if ss:
+                res.score = s
+            if w:
                 res.is_classified = True
-                res.classification = lca
-                res.score = float(score)
-                continue
-
-            score, taxid = total, max_species[0]
-            if score == 0 or score < self.min_score:
-                res.score = float(score)
-                continue
-
-            # best species (= taxid here); redundancy filtering happens in
-            # a later batched phase (host match array OR device fetch)
-            deferred.append((rid, qlen, score, taxid))
+                res.classification = c
         return deferred
 
     def finish_with_taxcnt(self, deferred, tax_cnts, query_lengths, results):
